@@ -1,4 +1,4 @@
-"""exaadmm_tpu — TPU-native two-level ADMM solver for component-decomposed ACOPF.
+"""exaadmm_tpu — two-level ADMM solver for component-decomposed ACOPF on GPUs.
 
 A from-scratch JAX/XLA re-design with the capabilities of exanauts/ExaAdmm.jl
 (reference mounted at /root/reference): batched per-component proximal updates,

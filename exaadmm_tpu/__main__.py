@@ -7,7 +7,7 @@ those same knobs onto flags for production/batch use:
     python -m exaadmm_tpu data/case9.m --rho-pq 400 --rho-va 40000
     python -m exaadmm_tpu case.m --solver mpacopf --load-prefix demand \\
         --end-period 3
-    python -m exaadmm_tpu case.m --mesh 8 --fp32 --branch-backend pallas
+    python -m exaadmm_tpu case.m --mesh 4 --fp32
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ import sys
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="python -m exaadmm_tpu",
-        description="TPU-native two-level ADMM solver for ACOPF "
+        description="Two-level ADMM solver for ACOPF on GPUs "
                     "(capabilities of exanauts/ExaAdmm.jl)")
     p.add_argument("case", help="MATPOWER .m case file")
     p.add_argument("--solver", default="acopf",
@@ -39,23 +39,22 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--projection", action="store_true",
                    help="power-flow feasibility projection after the solve")
     p.add_argument("--fp32", action="store_true",
-                   help="run in float32 (the default on TPU backends)")
+                   help="run in float32 (the default on accelerators)")
     p.add_argument("--fp64", action="store_true",
-                   help="run in float64 (the default on CPU; on TPU f64 is "
-                        "software-emulated and slow)")
-    p.add_argument("--branch-backend", default="xla",
-                   choices=["xla", "pallas"],
-                   help="branch NLP solver backend (pallas = fused TPU "
-                        "kernel, fp32 only)")
+                   help="run in float64 (the default on CPU)")
+    p.add_argument("--branch-backend", default="auto",
+                   choices=["auto", "xla"],
+                   help="TRON/ALM batch solver (auto = the fused GPU kernel "
+                        "for fp32 on a GPU, xla otherwise)")
     p.add_argument("--tron-step-cap", type=int, default=None,
                    help="lockstep trust-region step budget per branch solve")
     p.add_argument("--bus-backend", default="auto",
-                   choices=["auto", "segsum", "kr", "kr_win", "kr_pallas"],
-                   help="line->bus scatter backend (auto: windowed KR for "
-                        "fp32 at <=16k buses, exact segment_sum otherwise)")
+                   choices=["auto", "segsum", "kr", "kr_win"],
+                   help="line->bus scatter backend (auto: the exact "
+                        "segment_sum scatter)")
     p.add_argument("--mixed-precision", action="store_true",
                    help="fp64 solve with the branch batch in fp32 "
-                        "(Pallas-eligible); consensus/residual stay fp64")
+                        "(kernel-eligible); consensus/residual stay fp64")
     p.add_argument("--mesh", type=int, default=0, metavar="N",
                    help="shard lines over the first N devices")
     p.add_argument("--verbose", type=int, default=1)
@@ -92,14 +91,17 @@ def main(argv=None) -> int:
         print("--mixed-precision needs the fp64 state (it casts only the "
               "branch batch down); drop --fp32", file=sys.stderr)
         return 2
-    # reference-grade fp64 by default on CPU; native fp32 on accelerators
-    # (fp64 there is software-emulated — opt in with --fp64);
+    # reference-grade fp64 by default on CPU; fp32 on accelerators, where
+    # the fused TRON kernel runs (fp32-only) — opt in to fp64 with --fp64;
     # --mixed-precision implies the fp64 state
     if (args.fp64 or getattr(args, "mixed_precision", False)
             or (not args.fp32 and jax.default_backend() == "cpu")):
         jax.config.update("jax_enable_x64", True)
 
     import exaadmm_tpu as X
+    from exaadmm_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     mesh = None
     if args.mesh > 0:

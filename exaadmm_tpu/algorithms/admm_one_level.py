@@ -121,8 +121,8 @@ def admm_one_level(model, sol, info: IterationInformation | None = None,
         # host-stepped loop for visibility (one readback per iteration)
         if outer_iterlim > 500:
             # one-level solves routinely run thousands of iterations
-            # (reference qpsub case9: 5107); per-iteration dispatch costs
-            # ~100x the fused on-device loop on a remote TPU
+            # (reference qpsub case9: 5107); one dispatch per iteration
+            # costs far more than the fused on-device loop
             print(" [admm_one_level] verbose>0 steps the solver one dispatch "
                   "per iteration for visibility; use verbose=0 for the fused "
                   "single-dispatch production path")

@@ -51,8 +51,8 @@ def solve_acopf(
     backend: str | None = None,
     mesh=None,
     tron_step_cap: int | None = None,
-    branch_backend: str = "xla",
-    pallas_tile: int = 1024,
+    branch_backend: str = "auto",
+    pallas_tile: int = 32,
     bus_backend: str = "auto",
     mixed_precision: bool = False,
     initial_beta: float = 1e3,

@@ -46,8 +46,8 @@ def solve_qpsub(
     dtype=None,
     mesh=None,
     pad_lines_to: int = 1,
-    branch_backend: str = "xla",
-    pallas_tile: int = 1024,
+    branch_backend: str = "auto",
+    pallas_tile: int = 32,
     tron_step_cap: int | None = None,
     bus_backend: str = "auto",
 ) -> QpsubResult:

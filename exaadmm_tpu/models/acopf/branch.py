@@ -14,8 +14,9 @@ over the 8 flow/voltage quantities of the line
 (acopf_eval_linelimit_kernel_cpu.jl:1-46).
 
 Instead of 32 CUDA threads per line with hand-derived gradients/Hessians in
-shared memory, every line is a lane of :func:`~exaadmm_tpu.ops.tron.
-tron_alm_batched`; derivatives come from autodiff.
+shared memory, every line is a lane of the batched TRON/ALM solver
+(:mod:`exaadmm_tpu.ops.tron`) — one thread per line inside the fused GPU
+kernel; derivatives come from closed forms checked against autodiff.
 
 The 4-variable no-line-limit variant mirrors the semantics of ExaTron's
 ``polar_kernel_two_level_alternative`` (referenced at
@@ -28,7 +29,8 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from ...ops.tron import TronALMResult, tron_alm_batched, tron_batched
+from ...ops.tron import TronALMResult, tron_batched
+from ...ops.tron_pallas import select_tron_solver
 from ...utils.environment import BranchALMState, Parameters, Solution
 from ...utils.grid_data import GridData
 
@@ -50,7 +52,7 @@ def _flows(x, p):
 def _prox_terms(x, p, pij, qij, pji, qji):
     vi, vj, thi, thj = x[0], x[1], x[2], x[3]
     eight = (pij, qij, pji, qji, vi**2, vj**2, thi, thj)
-    f = jnp.asarray(0.0, x.dtype)
+    f = 0.0
     for k, w in enumerate(eight):
         f = f + p["l"][k] * w + 0.5 * p["rho"][k] * (w - p["t"][k]) ** 2
     return f
@@ -68,14 +70,19 @@ def branch_obj_linelimit(x, p, lam, mu):
 
 def branch_cons_linelimit(x, p):
     pij, qij, pji, qji = _flows(x, p)
-    return jnp.stack([pij**2 + qij**2 + x[4], pji**2 + qji**2 + x[5]])
+    return (pij**2 + qij**2 + x[4], pji**2 + qji**2 + x[5])
 
 
 def branch_alm_delta(c, lam_old, mu_old, lam_new, mu_new, p):
     """Exact objective change under an ALM multiplier/penalty update at
-    fixed x: the objective is affine in (lam, mu), all times `scale`."""
-    dl = jnp.sum((lam_new - lam_old) * c, axis=0)
-    dq = 0.5 * (mu_new - mu_old) * jnp.sum(c * c, axis=0)
+    fixed x: the objective is affine in (lam, mu), all times `scale`.
+    ``c`` and the multipliers are tuples of (B,) rows."""
+    dl = (lam_new[0] - lam_old[0]) * c[0]
+    cc = c[0] * c[0]
+    for k in range(1, len(c)):
+        dl = (lam_new[k] - lam_old[k]) * c[k] + dl
+        cc = c[k] * c[k] + cc
+    dq = 0.5 * (mu_new - mu_old) * cc
     return (dl + dq) * p["scale"]
 
 
@@ -100,7 +107,8 @@ def branch_fgh_linelimit(x, p, lam, mu):
     kernels (acopf_eval_linelimit_kernel_cpu.jl:48-605) — derived
     independently and verified against autodiff in tests.
 
-    Returns (f (B,), g (6,B), H as a 6x6 nested list of (B,) rows).
+    Returns (f (B,), g as a tuple of 6 (B,) rows, H as a 6x6 nested list of
+    (B,) rows).
     """
     vi, vj, ti, tj, s1, s2 = x[0], x[1], x[2], x[3], x[4], x[5]
     l, rho, t, scale = p["l"], p["rho"], p["t"], p["scale"]
@@ -153,14 +161,14 @@ def branch_fgh_linelimit(x, p, lam, mu):
     a[0] = a[0] + h_u1
     a[1] = a[1] + h_u2
 
-    g = jnp.stack([
+    g = tuple(gi * scale for gi in (
         2.0 * vi * a[0] + vj * c_ * a[2] + vj * s_ * a[3],
         2.0 * vj * a[1] + vi * c_ * a[2] + vi * s_ * a[3],
         -u4 * a[2] + u3 * a[3] + h_ti,
         u4 * a[2] - u3 * a[3] + h_tj,
         kap1,
         kap2,
-    ]) * scale
+    ))
 
     # --- Hessian ---
     # M over the basis: K^T diag(rho_m + 2 kap_blk) K
@@ -312,7 +320,7 @@ def branch_update(
 
     # mixed precision (Parameters.mixed_precision): fp64 solve, fp32 branch
     # batch — the solver inputs are cast down, the solver runs in fp32
-    # (Pallas-eligible), and the iterates are cast back up so the consensus/
+    # (kernel-eligible), and the iterates are cast back up so the consensus/
     # residual accumulation stays fp64
     out_dtype = u_line.dtype
     mixed = par.mixed_precision and out_dtype == jnp.float64
@@ -347,14 +355,7 @@ def branch_update(
             mu=res.mu.astype(out_dtype), minor_iters=res.minor_iters,
             alm_iters=res.alm_iters, cviol=res.cviol.astype(out_dtype))
 
-    use_pallas = (par.branch_backend == "pallas"
-                  and solve_dt == jnp.float32)
-    if use_pallas:
-        from ...ops.tron_pallas import tron_alm_batched_pallas as _solver
-        extra = {"tile": par.pallas_tile}
-    else:
-        _solver = tron_alm_batched
-        extra = {}
+    _solver, extra = select_tron_solver(par, solve_dt)
     # "auto": reference-faithful while-loop trial searches on every backend
     # (capped unrolls measured faster in steady state but cost convergence
     # on sensitive fp32 cases; see Parameters.tron_trial_unroll)
@@ -377,27 +378,20 @@ def branch_update(
             alm_delta_fn=branch_alm_delta,
         )
         B = x0.shape[1]
-        if par.branch_tail_tiles is None:
-            # ~1/16 of the batch, rounded up to whole tiles (steady-state
-            # straggler rate ~5% at pass-1 cap 3; measured +27% full-solve
-            # over a 1/8 tail at 9241 scale with no loss in final mismatch)
-            lanes = -(-B // 16)
-            tail_cap = -(-lanes // par.pallas_tile) * par.pallas_tile
-        else:
-            tail_cap = par.branch_tail_tiles * par.pallas_tile
+        tail_cap = par.branch_tail_lanes
+        if tail_cap is None:
+            # ~1/16 of the batch, rounded up to whole 1024-lane blocks
+            tail_cap = -(-B // (16 * 1024)) * 1024
         two_pass = (par.branch_two_pass
                     and par.tron_step_cap is not None
                     and par.tron_step_cap > par.branch_pass1_cap
                     and B >= 4 * tail_cap)
         if two_pass:
-            extra1 = dict(extra)
-            if use_pallas and par.pallas_pass1_tile is not None:
-                extra1["tile"] = par.pallas_pass1_tile
             res1 = _solver(
                 branch_obj_linelimit, branch_cons_linelimit,
                 x0, xl, xu, params, lam0, mu0,
                 step_cap=par.branch_pass1_cap, active0=active0,
-                **kw, **extra1,
+                **kw, **extra,
             )
             # a lane is finished iff its last ALM check passed ctol or it
             # exhausted its ALM rounds; anything else ran out of pass-1
@@ -406,10 +400,9 @@ def branch_update(
                                      | (res1.alm_iters >= par.max_auglag))
             # compact the stragglers (stable: unfinished lanes first) and
             # re-solve them from scratch with the full budget — identical
-            # per-lane trajectory to a single full-budget pass.
-            # Gathers/scatters cost ~90us per CALL on TPU regardless of row
-            # count, so all pass-2 traffic is packed into row-stacked arrays:
-            # one input gather, one output gather, one output scatter.
+            # per-lane trajectory to a single full-budget pass. All pass-2
+            # traffic is packed into row-stacked arrays: one input gather,
+            # one output gather, one output scatter.
             idx = jnp.argsort(jnp.where(unfinished, 0, 1))[:tail_cap]
             dtype = x0.dtype
             leaves, treedef = jax.tree_util.tree_flatten(params)
@@ -526,7 +519,7 @@ def branch_update(
         "pass1_unfinished": pass1_unfinished,
         # stragglers beyond the two-pass tail capacity this call (they kept
         # their pass-1 iterate; persistent non-zero values mean
-        # branch_tail_tiles should be raised)
+        # branch_tail_lanes should be raised)
         "tail_overflow": tail_overflow,
         # per-lane lockstep steps consumed — the difficulty signal for the
         # driver's line sorting (Parameters.sort_lines)

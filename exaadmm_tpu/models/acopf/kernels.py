@@ -46,24 +46,20 @@ def generator_update(
 
 
 def kr_scatter(vals, ids, nbus: int):
-    """Rows->segments scatter-add as MXU matmuls (Khatri-Rao one-hot split).
+    """Rows->segments scatter-add as matmuls (Khatri-Rao one-hot split).
 
-    XLA lowers ``segment_sum`` row-serially on TPU (~8-10 ns/row regardless
-    of width — the bus-update bottleneck at scale); the same reduction is a
-    dense contraction against the (N, nbus) one-hot, which factorizes as
-    onehot(b) = onehot(b // 128) (x) onehot(b % 128) so the matmul carries
-    zero lane padding:
+    The same reduction as ``segment_sum`` is a dense contraction against the
+    (N, nbus) one-hot, which factorizes as
+    onehot(b) = onehot(b // 128) (x) onehot(b % 128):
 
-        D[n, (h, c)] = onehot_hi[n, h] * vals[n, c]   (cheap VPU build)
+        D[n, (h, c)] = onehot_hi[n, h] * vals[n, c]   (elementwise build)
         agg[(h, c), l] = D^T @ onehot_lo              ((H*C, N) @ (N, 128))
 
     The data operand is split into THREE bf16 terms (the one-hot side is
-    exact in bf16), giving ~24 mantissa bits: measured max rel error
-    <=1.2e-7 — at fp32 segment_sum's own accuracy. Scatter-op microbenches
-    show ~2x over row-serial segment_sum; end-to-end the fused solver gains
-    ~2% (in-process interleaved A/B, tools/ab_bench.py) since the scatter is
-    one piece of the bus update. One-hots are rebuilt from ``ids`` each call
-    (~1 us) so dynamic line permutations (sort_lines) compose for free.
+    exact in bf16), giving ~24 mantissa bits: max rel error ~1e-7, at fp32
+    segment_sum's own accuracy, and deterministic (no atomics). One-hots are
+    rebuilt from ``ids`` each call so dynamic line permutations (sort_lines)
+    compose for free.
     """
     Lw = 128
     Hn = -(-nbus // Lw)
@@ -85,8 +81,8 @@ def kr_scatter(vals, ids, nbus: int):
     # expansion — numerically identical to splitting the expanded product
     # (the one-hot factor is exact 0/1 in bf16, multiplication by it is
     # exact), but the expansion then materializes three bf16 (n, Hn*W)
-    # operands instead of one f32 + three bf16 (~2.3x less HBM traffic;
-    # the scatter is bandwidth-bound on the expansion, not MXU-bound).
+    # operands instead of one f32 + three bf16 (~2.3x less memory traffic;
+    # the scatter is bandwidth-bound on the expansion).
     # optimization_barrier around each bf16 term: under jit, XLA's
     # excess-precision simplifier treats f32->bf16->f32 round-trips as
     # value-preserving and cancels `v - f32(bf16(v))` to zero, silently
@@ -113,15 +109,14 @@ def kr_scatter(vals, ids, nbus: int):
 def build_kr_window_setup(fr, to, nbus: int, *, A: int = 1024, S: int = 512):
     """Static setup for the WINDOWED KR scatter (large-grid variant).
 
-    The dense KR contraction is O(N * nbus * C) MACs, which loses to
-    segment_sum beyond ~16k buses. Sorting the 2N line ENDS ("arcs") by bus
-    id makes every A-arc tile touch a narrow bus window, so the contraction
-    shrinks to O(N * W * C) with W the window width: per iteration one
-    2N-row permutation gather puts the contributions in arc order (gathers
-    are ~2.5x cheaper than scatters at this scale), then batched per-tile
-    KR matmuls accumulate into slot-aligned (S = W/2) output slabs that
-    combine with a single shifted add. Window starts are S-aligned so
-    consecutive tiles write disjoint-or-identical slots.
+    The dense KR contraction is O(N * nbus * C) MACs, which grows with the
+    grid. Sorting the 2N line ENDS ("arcs") by bus id makes every A-arc tile
+    touch a narrow bus window, so the contraction shrinks to O(N * W * C)
+    with W the window width: per iteration one 2N-row permutation gather
+    puts the contributions in arc order, then batched per-tile KR matmuls
+    accumulate into slot-aligned (S = W/2) output slabs that combine with a
+    single shifted add. Window starts are S-aligned so consecutive tiles
+    write disjoint-or-identical slots.
 
     Returns None when a degree spike blows the largest window past 4096
     (caller falls back to segment_sum); otherwise a dict of static arrays.
@@ -234,8 +229,8 @@ def bus_update(u: Blocks, z: Blocks, l: Blocks, rho: Blocks, gd: GridData,
 
     Under ``shard_map`` with lines sharded on ``axis_name`` (gens/buses
     replicated), the per-shard line->bus segment sums are combined with a
-    single ``psum`` — the TPU-native replacement for the reference's MPI line
-    partition that never shipped its collectives (SURVEY §2.7.3).
+    single ``psum`` — the replacement for the reference's MPI line partition
+    that never shipped its collectives (SURVEY §2.7.3).
 
     ``ramp`` (optional): dict with per-generator arrays ``u/z/l/rho`` of the
     NEXT period's ramp-coupling solution; when given, the pg rows blend the
@@ -289,21 +284,16 @@ def bus_update(u: Blocks, z: Blocks, l: Blocks, rho: Blocks, gd: GridData,
         assert kr_win_setup is not None, "kr_win needs build_kr_window_setup"
         agg = kr_scatter_windowed(line_contrib, line_contrib_to,
                                   kr_win_setup, nbus)
-    elif bus_backend == "kr_pallas":
-        from ...ops.bus_pallas import kr_scatter_pallas
-        agg = kr_scatter_pallas(line_contrib, line_contrib_to, fr, to,
-                                nbus=nbus)
     elif bus_backend == "kr":
         # one contraction over the 2N stacked arcs instead of two N-row
-        # calls: halves the per-call one-hot/reshape overheads and lets the
-        # MXU run one longer matmul
+        # calls: halves the per-call one-hot/reshape overheads
         agg = kr_scatter(
             jnp.concatenate([line_contrib, line_contrib_to], axis=0),
             jnp.concatenate([fr, to], axis=0), nbus)
     elif getattr(gd, "fr_sorted", False):
         # statically fr-sorted lines (build_grid_data(sort_lines_static=
-        # True)): XLA's sorted-indices scatter path is ~2.1x the unsorted
-        # one (tools/bus_bench.py at 70k dims); only the fr side is sorted
+        # True)) let XLA take its sorted-indices scatter path; only the fr
+        # side is sorted
         agg = (jops.segment_sum(line_contrib, fr, num_segments=nbus,
                                 indices_are_sorted=True)
                + seg(line_contrib_to, to))
@@ -359,11 +349,10 @@ def bus_update(u: Blocks, z: Blocks, l: Blocks, rho: Blocks, gd: GridData,
     wi = common_wi + (gd.YshR * mu1 - gd.YshI * mu2) / safe_rhosum_wi
     ti = common_ti / safe_rhosum_ti
 
-    # writeback: consensus copies for every attached component. TPU gathers
-    # are row-serial (~10ns per index regardless of row width), so the four
+    # writeback: consensus copies for every attached component. The four
     # bus quantities are packed into one (nbus, 4) array and gathered ONCE
     # per index set (fr/to/gen) instead of once per quantity — 3 gathers
-    # instead of 10 (measured ~860us/iter -> ~330us at 9241-bus scale).
+    # instead of 10.
     wtm = jnp.stack([wi, ti, mu1, mu2], axis=-1)
     g_fr = wtm[fr]
     g_to = wtm[to]

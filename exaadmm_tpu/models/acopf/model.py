@@ -98,10 +98,10 @@ def build_model(
         sort_lines_static=sort_lines_static, dtype=dtype
     )
     model = ModelAcopf(grid=gd, par=par, use_linelimit=use_linelimit)
-    if resolve_bus_backend(par, gd.pgmin.dtype, gd.nbus) == "kr_win":
+    if resolve_bus_backend(par) == "kr_win":
         # static windowed-KR setup needs concrete ids: compute at build time
         # (inside a jit trace they are tracers; replaced/sharded models fall
-        # back to segment_sum via update_xbar)
+        # back to the dense kr form via update_xbar)
         model._kr_win_setup = kernels.build_kr_window_setup(
             gd.line_from, gd.line_to, gd.nbus)
     return model
@@ -179,36 +179,25 @@ def update_x(model: ModelAcopf, sol: Solution, inner_iter, axis_name=None,
     return sol.replace(u=Blocks(gen=u_gen, line=u_line), branch_alm=alm), stats
 
 
-def resolve_bus_backend(par, dtype, nbus=None):
-    """"auto": the windowed KR scatter ("kr_win", bus-sorted arcs,
-    O(N * W * 8) MACs) for fp32 at moderate nbus, exact segment_sum
-    otherwise.
+def resolve_bus_backend(par):
+    """The bus scatter backend of ``Parameters.bus_backend``: "auto"
+    resolves to the exact ``segment_sum`` scatter ("segsum"); explicit
+    "kr" / "kr_win" select the Khatri-Rao matmul forms.
 
-    History of this policy (all same-process interleaved A/Bs at
-    tron_step_cap 12, 100-iteration dispatches): round 4's dense KR beat
-    segment_sum ~2% end-to-end at 9241 buses but its (N, ceil(nbus/128)*8)
-    Khatri-Rao materialization is O(nbus)-wide, so it lost beyond ~16k
-    buses; the round-4 windowed variant ALSO lost (79.4 vs 84.9 it/s at
-    synth-70k) because it materialized the expansion in f32 + 3 bf16
-    copies. Round 5 moved the 3-term bf16 split BEFORE the expansion
-    (~2.3x less traffic), which flips the verdict at 9241: kr_win 349.7 >
-    kr 332.1 it/s (the window bounds the expansion at W*8=64 columns vs
-    the dense form's 584). At synth-70k segment_sum still wins (92.2 vs
-    89.4 — the 2N-row permutation gather dominates there), so huge grids
-    stay row-serial-exact. Callers without a precomputed static window
-    setup (sharded local models, vmapped multi-period bus updates) fall
-    back to the dense "kr" form at the call site."""
+    On an H100 (700 W) the fused solver at synth-9241 fp32 ran 3995.6
+    steady-state inner it/s with segsum against 3431.9 with the windowed KR
+    form (chip_smoke phase d): the GPU's atomic scatter-add is one pass over
+    the 2 x nline x 8 contributions, where the windowed form pays a 2N-row
+    gather and three bf16 matmul passes. Callers without a precomputed
+    static window setup (sharded local models, vmapped multi-period bus
+    updates) fall back from "kr_win" to the dense "kr" form at the call
+    site."""
     bb = getattr(par, "bus_backend", "auto")
-    if bb == "auto":
-        if dtype == jnp.float32 and nbus is not None and nbus <= 16384:
-            bb = "kr_win"
-        else:
-            bb = "segsum"
-    return bb
+    return "segsum" if bb == "auto" else bb
 
 
 def update_xbar(model: ModelAcopf, sol: Solution, Pd=None, Qd=None, axis_name=None):
-    bb = resolve_bus_backend(model.par, sol.u.gen.dtype, model.grid.nbus)
+    bb = resolve_bus_backend(model.par)
     setup = getattr(model, "_kr_win_setup", None)
     if bb == "kr_win" and setup is not None and not (
             setup.get("_fr_ref") is model.grid.line_from
@@ -219,9 +208,7 @@ def update_xbar(model: ModelAcopf, sol: Solution, Pd=None, Qd=None, axis_name=No
         setup = None
     if bb == "kr_win" and setup is None:
         # no (valid) precomputed static window setup (sharded local model,
-        # permuted grid, or a degree spike at build): dense-KR fallback —
-        # still the measured second-best at the sizes where auto picks
-        # kr_win
+        # permuted grid, or a degree spike at build): dense-KR fallback
         bb = "kr"
     v = kernels.bus_update(
         sol.u, sol.z, sol.l, sol.rho, model.grid,

@@ -11,7 +11,7 @@ with consensus  phat_{t-1} - vbar_{t-1}[pg] + z_r = 0  and the generator-local
 equality  p_t - phat_{t-1} - s_t = 0  handled by a per-generator ALM
 (mpacopf_auglag_generator_kernel_cpu.jl:18-131).
 
-TPU design: the period axis is a BATCH axis. Within one inner ADMM iteration
+Design: the period axis is a BATCH axis. Within one inner ADMM iteration
 every period's update reads only previous-iteration values of its neighbours
 (the reference's sequential loop over t has no intra-iteration dependency), so:
 
@@ -31,7 +31,7 @@ import dataclasses
 import jax
 import jax.numpy as jnp
 
-from ...ops.tron import tron_alm_batched
+from ...ops.tron_pallas import select_tron_solver
 from ...utils.environment import (Blocks, BranchALMState, Parameters, Solution)
 from ...utils.grid_data import GridData
 from ...utils.opfdata import OPFData
@@ -207,7 +207,7 @@ class ModelMpacopf:
 
         def gen_cons(x, p):
             del p
-            return jnp.stack([x[0] - x[1] - x[2]])
+            return (x[0] - x[1] - x[2],)
 
         xl = jnp.stack([tile(gd.pgmin), tile(gd.pgmin), -tile(gd.ramp_rate)], 0)
         xu = jnp.stack([tile(gd.pgmax), tile(gd.pgmax), tile(gd.ramp_rate)], 0)
@@ -220,14 +220,7 @@ class ModelMpacopf:
         eps = float(jnp.finfo(dtype).eps)
         xi0 = jnp.where(inner_iter <= 1, jnp.full((B,), 10.0, dtype),
                         flat(rp.alm_xi))
-        use_pallas = (self.par.branch_backend == "pallas"
-                      and dtype == jnp.float32)
-        if use_pallas:
-            from ...ops.tron_pallas import tron_alm_batched_pallas as _solver
-            extra = {"tile": min(self.par.pallas_tile, max(256, B))}
-        else:
-            _solver = tron_alm_batched
-            extra = {}
+        _solver, extra = select_tron_solver(self.par, dtype)
         return _solver(
             gen_obj, gen_cons, x0, xl, xu, gparams,
             flat(rp.alm_mu)[None, :], xi0,
@@ -344,8 +337,8 @@ class ModelMpacopf:
         }
 
         from ..acopf.model import resolve_bus_backend
-        bb = resolve_bus_backend(self.par, dtype, gd.nbus)
-        if bb in ("kr_pallas", "kr_win"):
+        bb = resolve_bus_backend(self.par)
+        if bb == "kr_win":
             bb = "kr"  # vmapped over periods; no static window setup here
 
         def one_period(u, z, l, rho, pd, qd, ramp):

@@ -14,7 +14,7 @@ nonconvex line physics is replaced by:
 - linearized line limits 1j/1k with slacks t >= 0, handled by a per-line ALM
   (qpsub_auglag_Ab_linelimit_kernel_red_cpu.jl).
 
-Uses ONE-LEVEL ADMM (solve_qpsub.jl:120-124). TPU design: the per-line box
+Uses ONE-LEVEL ADMM (solve_qpsub.jl:120-124). Design: the per-line box
 QPs solve as one flat TRON/ALM batch over the reduced 6 variables — the
 objective is quadratic, so the autodiff Hessian is exact and Newton steps
 land in one TR iteration; the w elimination and the 1j/1k constraint rows are
@@ -29,7 +29,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from ...ops.tron import tron_alm_batched
+from ...ops.tron_pallas import select_tron_solver
 from ...utils.environment import Blocks, Parameters, Solution
 from ...utils.grid_data import GridData, build_grid_data
 from ...utils.opfdata import OPFData
@@ -271,11 +271,7 @@ class ModelQpsub:
             mu0 = jnp.zeros_like(mu0)
             lam0 = jnp.zeros_like(lam0)
         active0 = gd.line_mask > 0.5
-        if self.par.branch_backend == "pallas" and dt == jnp.float32:
-            from ...ops.tron_pallas import tron_alm_batched_pallas as _solver
-            extra = {"tile": self.par.pallas_tile}
-        else:
-            _solver, extra = tron_alm_batched, {}
+        _solver, extra = select_tron_solver(self.par, dt)
         from ..acopf.branch import branch_alm_delta
         res = _solver(
             qp_obj, qp_cons, x0, xl, xu, params, lam0, mu0, **extra,
@@ -322,7 +318,7 @@ class ModelQpsub:
     def update_xbar(self, sol: SolutionQpsub, Pd=None, Qd=None, axis_name=None):
         from ..acopf.model import resolve_bus_backend
         b = sol.base
-        bb = resolve_bus_backend(self.par, b.u.gen.dtype, self.grid.nbus)
+        bb = resolve_bus_backend(self.par)
         if bb == "kr_win":
             bb = "kr"  # no static window setup on this model
         v = kernels.bus_update(b.u, b.z, b.l, b.rho, self.grid,
@@ -435,7 +431,7 @@ def _reduced_qp_fns():
     def cons(x, p):
         c3 = sum(p["w3"][i] * x[i] for i in range(6)) + p["e3"]
         c4 = sum(p["w4"][i] * x[i] for i in range(6)) + p["e4"]
-        return jnp.stack([c3, c4])
+        return c3, c4
 
     def obj(x, p, lam, mu):
         c3, c4 = cons(x, p)
@@ -452,11 +448,11 @@ def _reduced_qp_fns():
         f = (sum((0.5 * Gx[i] + p["h0"][i]) * x[i] for i in range(6)) + p["fc"]
              + lam[0] * c3 + lam[1] * c4
              + 0.5 * mu * (c3 * c3 + c4 * c4)) * p["scale"]
-        g = jnp.stack([
+        g = tuple(
             (Gx[i] + p["h0"][i] + kap3 * p["w3"][i] + kap4 * p["w4"][i])
             * p["scale"]
             for i in range(6)
-        ])
+        )
         H = [[(p["G"][i][j]
                + mu * (p["w3"][i] * p["w3"][j] + p["w4"][i] * p["w4"][j]))
               * p["scale"]

@@ -1,29 +1,31 @@
 """Batched trust-region Newton (TRON-style) with an augmented-Lagrangian wrapper.
 
-This is the TPU-native replacement for the reference's device-resident ExaTron
-solver (the external ``ExaTron`` package: ``dtron``/``dcauchy``/``dspcg``/
-``dgpnorm``; call sites at
-``/root/reference/src/models/acopf/acopf_tron_linelimit_kernel.jl:61-144``) and
-for the per-line ALM loop that wraps it
+This replaces the reference's device-resident ExaTron solver (the external
+``ExaTron`` package: ``dtron``/``dcauchy``/``dspcg``/``dgpnorm``; call sites
+at ExaAdmm.jl's ``src/models/acopf/acopf_tron_linelimit_kernel.jl:61-144``)
+and the per-line ALM loop that wraps it
 (``acopf_auglag_linelimit_kernel_cpu.jl:120-156``).
 
-Design: instead of one CUDA block per subproblem running divergent loops, ALL
-subproblems advance in lockstep through a single flat state machine inside one
-``lax.while_loop`` whose body is fully batched. Each lane (subproblem)
-carries its own phase (TRON minor iteration vs ALM multiplier round vs done);
-the loop runs until every lane finishes — uniform control flow at the cost of
-masked work for early finishers.
+Design: ALL subproblems of a batch advance in lockstep through one flat state
+machine inside one ``lax.while_loop`` whose body is fully batched. Each lane
+(subproblem) carries its own phase (TRON minor iteration vs ALM multiplier
+round vs done); the loop runs until every lane finishes — uniform control flow
+at the cost of masked work for early finishers. The same state machine runs
+over the whole batch in XLA (:func:`tron_alm_batched`) or over one small tile
+per GPU thread block (``ops/tron_pallas.py``), where each block exits when
+its own lanes are done — the reference's one-block-per-line design.
 
-LAYOUT: everything is transposed, "rows" layout — iterates are (n, B), the
-Hessian is (n, n, B), parameters are (..., B). The batch dimension B is
-minor-most so it maps onto the TPU's 128-wide vector lanes; with the natural
-(B, n) layout the VPU would idle 122 of 128 lanes (n=6). All dense 6x6
-factorizations unroll to scalar-per-row ops on (B,) vectors.
+LAYOUT: "rows". Every n-vector is a tuple of n ``(B,)`` rows, the Hessian a
+nested n x n list of rows, and lane parameters are rows (or nested tuples of
+rows). All dense 6x6 algebra unrolls to elementwise ops on ``(B,)`` vectors,
+so inside the GPU kernel each lane is one thread whose state lives in
+registers, and no op ever slices or stacks along the small dimension (the
+Triton lowering supports neither).
 
-Derivatives come from autodiff in the same layout:
-  gradient: d/dX sum_b f_b(X)  ->  (n, B), exact per-lane gradients since f
-  is elementwise over lanes;
-  Hessian: n Hessian-vector products jvp(grad, e_j)  ->  (n, n, B).
+Derivatives: a model may pass closed forms (``fgh_fn``); otherwise they come
+from autodiff in the same layout — the gradient as a VJP with unit cotangent
+(exact per-lane gradients since f is elementwise over lanes), the Hessian as
+n forward-over-reverse products.
 
 Algorithm per lane (faithful to Lin & More's TRON as used by ExaTron):
   - Cauchy point along the projected gradient with sufficient decrease
@@ -60,8 +62,8 @@ _PRSRCH_ITERS = 20
 
 
 class TronALMResult(NamedTuple):
-    x: jnp.ndarray       # (n, B) final iterates
-    lam: jnp.ndarray     # (ncon, B) ALM multipliers
+    x: jnp.ndarray       # (n, B) final iterates (a tuple of rows in-kernel)
+    lam: jnp.ndarray     # (ncon, B) ALM multipliers (likewise)
     mu: jnp.ndarray      # (B,) ALM penalties
     minor_iters: jnp.ndarray  # (B,) total TR iterations
     alm_iters: jnp.ndarray    # (B,) ALM rounds taken
@@ -69,39 +71,61 @@ class TronALMResult(NamedTuple):
 
 
 class _State(NamedTuple):
-    # NOTE: the boolean lane masks (tron_done/need_init/active) are carried
-    # as 0/1 floats, not bools — Mosaic cannot legalize i1 vector yields in
-    # loop carries when this state machine runs inside a Pallas kernel.
-    x: jnp.ndarray
+    x: tuple
     f: jnp.ndarray
     delta: jnp.ndarray
     alpha_c: jnp.ndarray
     tron_it: jnp.ndarray
-    tron_done: jnp.ndarray   # float 0/1
-    need_init: jnp.ndarray   # float 0/1
-    lam: jnp.ndarray
+    tron_done: jnp.ndarray   # bool
+    need_init: jnp.ndarray   # bool
+    lam: tuple
     mu: jnp.ndarray
     eta: jnp.ndarray
     alm_it: jnp.ndarray
-    active: jnp.ndarray      # float 0/1
+    active: jnp.ndarray      # bool
     minor_total: jnp.ndarray
     cviol: jnp.ndarray
     steps: jnp.ndarray
 
 
+# ---- row algebra -----------------------------------------------------------
+
+def _rmap(fn, *rows):
+    return tuple(fn(*r) for r in zip(*rows))
+
+
+def _dot(a, b):
+    # the multiply-add order of XLA's reduce of a * b over the small axis
+    acc = a[0] * b[0]
+    for u, v in zip(a[1:], b[1:]):
+        acc = u * v + acc
+    return acc
+
+
+def _any(mask):
+    # the Triton lowering has no reduce_or: reduce an int32 view instead
+    return jnp.max(mask.astype(jnp.int32)) > 0
+
+
 def _gp_norm_inf(x, g, xl, xu):
-    gp = g
-    gp = jnp.where(x <= xl, jnp.minimum(g, 0.0), gp)
-    gp = jnp.where(x >= xu, jnp.maximum(gp, 0.0), gp)
-    return jnp.max(jnp.abs(gp), axis=0)
+    def gp(xi, gi, li, ui):
+        p = jnp.where(xi <= li, jnp.minimum(gi, 0.0), gi)
+        p = jnp.where(xi >= ui, jnp.maximum(p, 0.0), p)
+        return jnp.abs(p)
+
+    rows = _rmap(gp, x, g, xl, xu)
+    out = rows[0]
+    for r in rows[1:]:
+        out = jnp.maximum(out, r)
+    return out
 
 
 def _norm2(s):
-    return jnp.sqrt(jnp.sum(s * s, axis=0))
+    return jnp.sqrt(_dot(s, s))
 
 
 def _chol_solve_rows(H, rhs, tau):
-    """Solve (H + tau*I) d = rhs per lane; H (n,n,B) rows layout, rhs (n,B).
+    """Solve (H + tau*I) d = rhs per lane; H nested rows, rhs a tuple of rows.
 
     Unrolled dense Cholesky on (B,)-vector scalars; returns (d, ok) where ok
     marks lanes whose pivots stayed positive.
@@ -109,12 +133,12 @@ def _chol_solve_rows(H, rhs, tau):
     n = len(H)
     L = [[None] * n for _ in range(n)]
     inv_diag = [None] * n
-    ok = jnp.ones(rhs.shape[-1], dtype=bool)
+    ok = None
     for j in range(n):
         s = H[j][j] + tau
         for k in range(j):
             s = s - L[j][k] * L[j][k]
-        ok = ok & (s > 0)
+        ok = (s > 0) if ok is None else ok & (s > 0)
         piv = jnp.sqrt(jnp.where(s > 0, s, 1.0))
         inv_piv = 1.0 / piv
         inv_diag[j] = inv_piv
@@ -135,61 +159,57 @@ def _chol_solve_rows(H, rhs, tau):
         for k in range(i + 1, n):
             t = t - L[k][i] * d[k]
         d[i] = t * inv_diag[i]
-    return jnp.stack(d, axis=0), ok
+    return tuple(d), ok
 
 
 def _newton_dir_rows(H, rhs):
-    """Smallest-shift Newton direction (rows layout). Mirrors TRON's shifted
-    incomplete Cholesky (dicfs); dense+exact here since n<=6.
+    """Smallest-shift Newton direction. Mirrors TRON's shifted incomplete
+    Cholesky (dicfs); dense and exact here since n <= 6.
 
     The free-variable Hessian is PD at shift 0 for the vast majority of lanes
-    (the proximal rho terms dominate), so the escalating-shift ladder runs as
-    a while-loop that exits as soon as every lane is factorized — one
-    factorization per TR step in the common case instead of six. (A
-    while-loop rather than lax.cond: Mosaic cannot legalize scf.if with
-    vector results inside Pallas kernels; masks carried as 0/1 floats for the
-    same reason.)"""
-    dtype = rhs.dtype
-    diag = jnp.stack([jnp.abs(H[i][i]) for i in range(len(H))], axis=0)
-    dmax = jnp.maximum(jnp.max(diag, axis=0), 1.0)
-    # scalar selects rather than an indexed constant array: a traced-constant
-    # array would be captured by the enclosing Pallas kernel (disallowed)
+    (the proximal rho terms dominate), so the shift-0 factorization is
+    peeled and the escalating-shift ladder runs as a while-loop that exits
+    as soon as every lane is factorized — one factorization per TR step in
+    the common case instead of six."""
+    n = len(H)
+    dmax = jnp.abs(H[0][0])
+    for i in range(1, n):
+        dmax = jnp.maximum(dmax, jnp.abs(H[i][i]))
+    dmax = jnp.maximum(dmax, 1.0)
+    # scalar selects rather than an indexed constant array: a kernel may not
+    # capture a traced constant array
     LEVELS = (0.0, 1e-10, 1e-6, 1e-3, 1.0, 1e3)
 
-    # peel the shift-0 factorization: the free-variable Hessian is PD at
-    # shift 0 for nearly every lane, so the escalation loop below almost
-    # never runs — its body stays out of the common path entirely
     d0, ok0 = _chol_solve_rows(H, rhs, jnp.zeros_like(dmax))
-    d0 = jnp.where(ok0[None, :], d0, 0.0)
+    d0 = _rmap(lambda v: jnp.where(ok0, v, 0.0), d0)
 
     def cond(carry):
         d, solved, idx = carry
-        return (idx < len(LEVELS)) & (jnp.min(solved) < 0.5)
+        return (idx < len(LEVELS)) & _any(~solved)
 
     def body(carry):
         d, solved, idx = carry
-        solvedb = solved > 0.5
-        lvl = jnp.zeros((), dtype)
+        lvl = jnp.zeros((), dmax.dtype)
         for k, v in enumerate(LEVELS):
             lvl = jnp.where(idx == k, v, lvl)
         cand, ok = _chol_solve_rows(H, rhs, dmax * lvl)
-        take = ok & ~solvedb
-        d = jnp.where(take[None, :], cand, d)
-        return d, (solvedb | ok).astype(dtype), idx + 1
+        take = ok & ~solved
+        d = _rmap(lambda c, v: jnp.where(take, c, v), cand, d)
+        return d, solved | ok, idx + 1
 
     d, solved, _ = lax.while_loop(
-        cond, body, (d0, ok0.astype(dtype), jnp.ones((), jnp.int32)))
-    return d, solved > 0.5
+        cond, body, (d0, ok0, jnp.ones((), jnp.int32)))
+    return d, solved
 
 
-def tron_alm_batched(
-    obj_fn: Callable,    # (x (n,B), params, lam (ncon,B), mu (B,)) -> (B,)
-    cons_fn: Callable,   # (x (n,B), params) -> (ncon, B)
-    x0: jnp.ndarray,     # (n, B)
-    xl: jnp.ndarray,
-    xu: jnp.ndarray,
-    params,              # pytree, leaves (..., B) broadcastable in obj_fn
-    lam0: jnp.ndarray,   # (ncon, B)
+def tron_alm_rows(
+    obj_fn: Callable,    # (x rows, params, lam rows, mu (B,)) -> (B,)
+    cons_fn: Callable,   # (x rows, params) -> tuple of ncon rows
+    x0: tuple,           # n rows of (B,)
+    xl: tuple,
+    xu: tuple,
+    params,              # pytree of rows (or nested tuples of rows)
+    lam0: tuple,         # ncon rows
     mu0: jnp.ndarray,    # (B,)
     *,
     gtol: float = 1e-6,
@@ -204,25 +224,26 @@ def tron_alm_batched(
     trial_unroll: tuple[int, int, int] | None = None,
     alm_delta_fn: Callable | None = None,
 ) -> TronALMResult:
-    """Solve B independent bound-constrained ALM problems in lockstep.
+    """Solve B independent bound-constrained ALM problems in lockstep, with
+    every vector held as a tuple of ``(B,)`` rows (see the module docstring).
+    Returns a :class:`TronALMResult` whose ``x`` and ``lam`` are tuples of
+    rows. :func:`tron_alm_batched` is the array front end.
 
     ``obj_fn`` is the FULL augmented objective (base + lam.c + 0.5 mu |c|^2)
     written row-wise (x[0], x[1], ... are (B,) vectors); gradients and
     Hessians are derived from it by autodiff, replacing the reference's
     600-line hand-derived eval kernels (acopf_eval_linelimit_kernel_cpu.jl).
-    Pass ``fgh_fn(x, params, lam, mu) -> (f, g, H_rows)`` to override the
-    autodiff evaluation with hand-derived closed forms on the hot path
-    (Hessian autodiff costs ~5x the primal; the closed forms ~1.5x).
+    Pass ``fgh_fn(x, params, lam, mu) -> (f, g rows, H nested rows)`` to
+    override the autodiff evaluation with hand-derived closed forms on the
+    hot path (Hessian autodiff costs ~5x the primal; the closed forms ~1.5x).
 
     ``trial_unroll=(k_interp, k_extrap, k_prsrch)`` replaces the three
     data-dependent trial-search while-loops inside each trust-region step
     (Cauchy interpolation/extrapolation, projected backtracking) with
-    fixed-trip masked unrolled searches — the fast mode for the Pallas
-    kernel, where loop control runs on the scalar core and costs more than
-    the loop bodies. With caps equal to the loop caps (22, 10, 20) results
-    are bit-identical to the while-loop mode; smaller caps trade rare
-    pathological-lane accuracy for uniform cost (the TR machinery absorbs a
-    failed search by shrinking the radius).
+    fixed-trip masked unrolled searches. With caps equal to the loop caps
+    (22, 10, 20) results are bit-identical to the while-loop mode; smaller
+    caps trade rare pathological-lane accuracy for uniform cost (the TR
+    machinery absorbs a failed search by shrinking the radius).
 
     ``alm_delta_fn(c, lam_old, mu_old, lam_new, mu_new, params) -> (B,)``
     optionally supplies the exact objective change under a multiplier/penalty
@@ -230,27 +251,27 @@ def tron_alm_batched(
     objective re-evaluation after each ALM round — the model knows its own
     scaling, the solver does not.
     """
-    n, B = x0.shape
-    dtype = x0.dtype
-    ncon = lam0.shape[0]
+    n = len(x0)
+    B = x0[0].shape[0]
+    dtype = x0[0].dtype
+    ncon = len(lam0)
 
     def f_batched(X, lam, mu):
         return obj_fn(X, params, lam, mu)
 
-    def f_sum(X, lam, mu):
-        return jnp.sum(obj_fn(X, params, lam, mu))
-
-    grad_fn = jax.grad(f_sum, argnums=0)
+    def grad_fn(X, lam, mu):
+        f, vjp = jax.vjp(lambda Y: obj_fn(Y, params, lam, mu), X)
+        return vjp(jnp.ones_like(f))[0]
 
     def grad_hess(X, lam, mu):
         if fgh_fn is not None:
             _, g, H = fgh_fn(X, params, lam, mu)
-            return g, H
+            return tuple(g), H
         g = grad_fn(X, lam, mu)
-        eye = jnp.eye(n, dtype=dtype)
+        zero, one = jnp.zeros_like(X[0]), jnp.ones_like(X[0])
         cols = []
         for j in range(n):
-            tangent = jnp.broadcast_to(eye[:, j][:, None], (n, B))
+            tangent = tuple(one if i == j else zero for i in range(n))
             _, hj = jax.jvp(lambda Y: grad_fn(Y, lam, mu), (X,), (tangent,))
             cols.append(hj)
         # H[i][j] is a (B,) vector: row i of H e_j
@@ -264,40 +285,44 @@ def tron_alm_batched(
             for j in range(1, n):
                 acc = acc + H[i][j] * s[j]
             out.append(acc)
-        return jnp.stack(out, axis=0)
+        return tuple(out)
 
     def cviol_inf(X):
-        c = cons_fn(X, params)
+        c = tuple(cons_fn(X, params))
         if ncon == 0:
             return jnp.zeros((B,), dtype), c
-        return jnp.max(jnp.abs(c), axis=0), c
+        cn = jnp.abs(c[0])
+        for ci in c[1:]:
+            cn = jnp.maximum(cn, jnp.abs(ci))
+        return cn, c
+
+    def select(mask, a, b):
+        return _rmap(lambda u, v: jnp.where(mask, u, v), a, b)
 
     def tr_step(x, f, g, H, delta, alpha_c, lam, mu):
         def qval(s):
-            return jnp.sum(g * s, axis=0) + 0.5 * jnp.sum(s * hmatvec(H, s), axis=0)
+            return _dot(g, s) + 0.5 * _dot(s, hmatvec(H, s))
 
         def proj(y):
-            return jnp.clip(y, xl, xu)
+            return _rmap(jnp.clip, y, xl, xu)
 
         def s_of(a):
-            return proj(x - a[None, :] * g) - x
+            return _rmap(jnp.subtract,
+                         proj(_rmap(lambda xi, gi: xi - a * gi, x, g)), x)
 
         def cauchy_ok(a):
             s = s_of(a)
-            return (_norm2(s) <= delta) & (qval(s) <= _MU0 * jnp.sum(g * s, axis=0))
+            return (_norm2(s) <= delta) & (qval(s) <= _MU0 * _dot(g, s))
 
         # --- Cauchy point (dcauchy): warm-started alpha ---
         a0 = jnp.maximum(alpha_c, 1e-30)
         need_interp = ~cauchy_ok(a0)
 
         if trial_unroll is not None:
-            # Fixed-trip masked searches: inside a Pallas kernel the
-            # data-dependent while-loops cost more in scalar-core loop
-            # control than their bodies do in VPU work (each trip is ~130
-            # flops/lane); unrolling makes every candidate evaluation
-            # independent and lets Mosaic pipeline them. Candidates come
-            # from the same chained multiplications as the loops, so with
-            # caps >= the loop caps the results are bit-identical.
+            # Fixed-trip masked searches: every candidate evaluation is
+            # independent. Candidates come from the same chained
+            # multiplications as the loops, so with caps >= the loop caps
+            # the results are bit-identical.
             k_interp, k_extrap, k_prsrch = trial_unroll
 
             cand = a0
@@ -321,121 +346,113 @@ def tron_alm_batched(
             # (a *= 10 while acceptable) are mutually exclusive per lane, so
             # run them as ONE lockstep loop with a per-lane factor: each
             # lane's candidate sequence is unchanged (bit-identical results)
-            # but the trip count is max(interp, extrap) instead of their
-            # sum — one less data-dependent while-loop per TR step, whose
-            # scalar-core control overhead is a measurable share of the
-            # Pallas kernel's per-step cost.
-            # float masks, not bool vectors: Mosaic cannot legalize selects
-            # over i1 vectors inside Pallas loop bodies (same reason _State
-            # carries 0/1 floats)
-            needf = need_interp.astype(dtype)
-            factor = needf * _INTERPF + (1.0 - needf) * _EXTRAPF
+            # but the trip count is max(interp, extrap) instead of their sum.
+            factor = jnp.where(need_interp, _INTERPF, _EXTRAPF)
 
             def cauchy_cond(carry):
                 a_best, cand, stop, k = carry
-                return (jnp.min(stop) < 0.5) & (k < _CAUCHY_ITERS)
+                return _any(~stop) & (k < _CAUCHY_ITERS)
 
             def cauchy_body(carry):
                 a_best, cand, stop, k = carry
-                stopb = stop > 0.5
-                needb = needf > 0.5
                 cand2 = cand * factor
                 ok = cauchy_ok(cand2)
                 # interp lanes: track every candidate while searching (the
                 # reference keeps the last trial even if the cap is hit),
                 # stop at the first acceptable one
-                take_i = needb & ~stopb
+                take_i = need_interp & ~stop
                 # extrap lanes: keep the LAST acceptable candidate, stop on
                 # the first failure (or the growth cap / trip cap)
                 good_e = ok & (cand2 < 1e12)
-                take_e = ~needb & ~stopb & good_e
+                take_e = ~need_interp & ~stop & good_e
                 a_best = jnp.where(take_i | take_e, cand2, a_best)
-                stop_i = (stopb | ok).astype(dtype)
-                stop_e = (stopb | ~good_e
-                          | (k + 1 >= _EXTRAP_ITERS)).astype(dtype)
-                stop2 = jnp.where(needb, stop_i, stop_e)
+                stop_i = stop | ok
+                stop_e = stop | ~good_e | (k + 1 >= _EXTRAP_ITERS)
+                stop2 = jnp.where(need_interp, stop_i, stop_e)
                 return a_best, cand2, stop2, k + 1
 
             alpha0, _, _, _ = lax.while_loop(
                 cauchy_cond, cauchy_body,
-                (a0, a0, jnp.zeros((B,), dtype), jnp.zeros((), jnp.int32)))
+                (a0, a0, jnp.zeros((B,), bool), jnp.zeros((), jnp.int32)))
             a_interp = a_extrap = alpha0
         alpha = jnp.where(need_interp, a_interp, a_extrap)
         sc = s_of(alpha)
-        xc = x + sc
+        xc = _rmap(jnp.add, x, sc)
 
         # --- Newton direction on free variables ---
-        free = (xc > xl) & (xc < xu)        # (n, B)
+        free = _rmap(lambda v, lo, hi: (v > lo) & (v < hi), xc, xl, xu)
         Hsc = hmatvec(H, sc)
-        gc = g + Hsc
-        gf = jnp.where(free, gc, 0.0)
-        # mask H rows/cols: Hm[i][j] = H[i][j] * free_i * free_j + (i==j)*~free_i
-        freef = free.astype(dtype)
+        gc = _rmap(jnp.add, g, Hsc)
+        gf = _rmap(lambda fr, v: -jnp.where(fr, v, 0.0), free, gc)
+        # H restricted to the free set, identity on the fixed variables
         Hm = [
             [
-                H[i][j] * freef[i] * freef[j]
-                + (1.0 - freef[i] if i == j else 0.0)
+                (jnp.where(free[i], H[i][i], 1.0) if i == j
+                 else jnp.where(free[i] & free[j], H[i][j], 0.0))
                 for j in range(n)
             ]
             for i in range(n)
         ]
-        d, solved = _newton_dir_rows(Hm, -gf)
-        d = jnp.where(free & solved[None, :], d, 0.0)
+        d, solved = _newton_dir_rows(Hm, gf)
+        d = _rmap(lambda fr, v: jnp.where(fr & solved, v, 0.0), free, d)
 
         # clip the combined step to the trust region (dtrqsol)
-        dd = jnp.sum(d * d, axis=0)
-        sd = jnp.sum(sc * d, axis=0)
-        ss = jnp.sum(sc * sc, axis=0)
+        dd = _dot(d, d)
+        sd = _dot(sc, d)
+        ss = _dot(sc, sc)
         rad = jnp.maximum(sd * sd + dd * (delta * delta - ss), 0.0)
         safe_dd = jnp.where(dd > 0, dd, 1.0)
         tau = jnp.where(dd > 0,
                         jnp.minimum((jnp.sqrt(rad) - sd) / safe_dd, 1.0), 0.0)
-        d = d * jnp.maximum(tau, 0.0)[None, :]
+        tau = jnp.maximum(tau, 0.0)
+        d = _rmap(lambda v: v * tau, d)
 
         # --- projected backtracking from xc along d (dprsrch) ---
         # q_c via the cached H*sc (saves one hmatvec per step)
-        q_c = jnp.sum(g * sc, axis=0) + 0.5 * jnp.sum(sc * Hsc, axis=0)
+        q_c = _dot(g, sc) + 0.5 * _dot(sc, Hsc)
+
+        def s_try_of(aw):
+            return _rmap(jnp.subtract,
+                         proj(_rmap(lambda c, v: c + aw * v, xc, d)), x)
+
+        def decrease(s_try):
+            dsc = _rmap(jnp.subtract, s_try, sc)
+            return qval(s_try) <= q_c + _MU0 * jnp.minimum(_dot(gc, dsc), 0.0)
 
         if trial_unroll is not None:
             aw = jnp.ones((B,), dtype)
             s_best = sc
             found = jnp.zeros((B,), bool)
             for _ in range(k_prsrch):
-                s_try = proj(xc + aw[None, :] * d) - x
-                decr = qval(s_try) <= q_c + _MU0 * jnp.minimum(
-                    jnp.sum(gc * (s_try - sc), axis=0), 0.0)
-                take = decr & ~found
-                s_best = jnp.where(take[None, :], s_try, s_best)
+                s_try = s_try_of(aw)
+                decr = decrease(s_try)
+                s_best = select(decr & ~found, s_try, s_best)
                 found = found | decr
                 aw = aw * 0.5
-            s = jnp.where(found[None, :], s_best, sc)
         else:
             def prs_cond(carry):
                 aw, best_s, found, k = carry
-                return (jnp.min(found) < 0.5) & (k < _PRSRCH_ITERS)
+                return _any(~found) & (k < _PRSRCH_ITERS)
 
             def prs_body(carry):
                 aw, best_s, found, k = carry
-                foundb = found > 0.5
-                s_try = proj(xc + aw[None, :] * d) - x
-                decr = qval(s_try) <= q_c + _MU0 * jnp.minimum(
-                    jnp.sum(gc * (s_try - sc), axis=0), 0.0)
-                take = decr & ~foundb
-                best_s = jnp.where(take[None, :], s_try, best_s)
-                return aw * 0.5, best_s, (foundb | decr).astype(dtype), k + 1
+                s_try = s_try_of(aw)
+                decr = decrease(s_try)
+                best_s = select(decr & ~found, s_try, best_s)
+                return aw * 0.5, best_s, found | decr, k + 1
 
-            aw0 = jnp.ones((B,), dtype)
             _, s_best, found, _ = lax.while_loop(
                 prs_cond, prs_body,
-                (aw0, sc, jnp.zeros((B,), dtype), jnp.zeros((), jnp.int32)))
-            s = jnp.where(found[None, :] > 0.5, s_best, sc)
+                (jnp.ones((B,), dtype), sc, jnp.zeros((B,), bool),
+                 jnp.zeros((), jnp.int32)))
+        s = select(found, s_best, sc)
 
         # --- ratio test & radius update (dtron) ---
-        xt = x + s
+        xt = _rmap(jnp.add, x, s)
         ft = f_batched(xt, lam, mu)
         predred = -qval(s)
         actred = f - ft
-        gts = jnp.sum(g * s, axis=0)
+        gts = _dot(g, s)
         snorm = _norm2(s)
 
         denom = ft - f - gts
@@ -464,7 +481,7 @@ def tron_alm_batched(
         delta_new = jnp.maximum(delta_new, 1e-30)
 
         accept = ratio > _ETA0
-        x_new = jnp.where(accept[None, :], xt, x)
+        x_new = select(accept, xt, x)
         f_new = jnp.where(accept, ft, f)
         frtol_conv = (predred <= frtol * jnp.abs(f)) | (
             accept & (actred <= frtol * jnp.abs(f)))
@@ -473,34 +490,32 @@ def tron_alm_batched(
     def body(st: _State) -> _State:
         g, H = grad_hess(st.x, st.lam, st.mu)
 
-        st_active = st.active > 0.5
-        st_done = st.tron_done > 0.5
-        st_init = st.need_init > 0.5
-
         gnorm = _norm2(g)
-        delta = jnp.where(st_init, jnp.maximum(gnorm, 1e-12), st.delta)
-        alpha_c = jnp.where(st_init, jnp.ones_like(st.alpha_c), st.alpha_c)
+        delta = jnp.where(st.need_init, jnp.maximum(gnorm, 1e-12), st.delta)
+        alpha_c = jnp.where(st.need_init, jnp.ones_like(st.alpha_c),
+                            st.alpha_c)
 
         gpn = _gp_norm_inf(st.x, g, xl, xu)
         tron_conv = gpn <= gtol
-        stepping = st_active & ~st_done & ~tron_conv & (st.tron_it < max_minor)
-        newly_done = st_active & ~st_done & (
+        stepping = (st.active & ~st.tron_done & ~tron_conv
+                    & (st.tron_it < max_minor))
+        newly_done = st.active & ~st.tron_done & (
             tron_conv | (st.tron_it >= max_minor))
 
         x2, f2, delta2, ac2, frtol_conv = tr_step(
             st.x, st.f, g, H, delta, alpha_c, st.lam, st.mu)
-        x = jnp.where(stepping[None, :], x2, st.x)
+        x = select(stepping, x2, st.x)
         f = jnp.where(stepping, f2, st.f)
         delta = jnp.where(stepping, delta2, delta)
         alpha_c = jnp.where(stepping, ac2, alpha_c)
         tron_it = st.tron_it + stepping.astype(jnp.int32)
         minor_total = st.minor_total + stepping.astype(jnp.int32)
-        need_init = st_init & ~stepping
+        need_init = st.need_init & ~stepping
 
-        tron_done = st_done | newly_done | (stepping & frtol_conv)
+        tron_done = st.tron_done | newly_done | (stepping & frtol_conv)
 
         # --- ALM round for lanes whose TRON solve just finished ---
-        do_alm = st_active & tron_done
+        do_alm = st.active & tron_done
         cnorm, c = cviol_inf(x)
         good = cnorm <= st.eta
         # reference nests the ctol test under the eta test
@@ -508,10 +523,8 @@ def tron_alm_batched(
         line_solved = good & (cnorm <= ctol)
 
         upd_lam = do_alm & good & ~line_solved
-        if ncon > 0:
-            lam = jnp.where(upd_lam[None, :], st.lam + st.mu[None, :] * c, st.lam)
-        else:
-            lam = st.lam
+        lam = _rmap(lambda lv, cv: jnp.where(upd_lam, lv + st.mu * cv, lv),
+                    st.lam, c)
         eta = jnp.where(upd_lam, st.eta / st.mu**0.9, st.eta)
 
         upd_mu = do_alm & ~good
@@ -520,7 +533,7 @@ def tron_alm_batched(
 
         alm_it = st.alm_it + do_alm.astype(jnp.int32)
         finished = do_alm & (line_solved | (alm_it >= max_auglag))
-        active = st_active & ~finished
+        active = st.active & ~finished
 
         restart = do_alm & ~finished
         tron_done = tron_done & ~restart
@@ -534,12 +547,9 @@ def tron_alm_batched(
         cviol = jnp.where(do_alm, cnorm, st.cviol)
 
         return _State(
-            x=x, f=f, delta=delta, alpha_c=alpha_c,
-            tron_it=tron_it,
-            tron_done=tron_done.astype(dtype),
-            need_init=need_init.astype(dtype),
-            lam=lam, mu=mu, eta=eta, alm_it=alm_it,
-            active=active.astype(dtype),
+            x=x, f=f, delta=delta, alpha_c=alpha_c, tron_it=tron_it,
+            tron_done=tron_done, need_init=need_init,
+            lam=lam, mu=mu, eta=eta, alm_it=alm_it, active=active,
             minor_total=minor_total, cviol=cviol, steps=st.steps + 1,
         )
 
@@ -547,12 +557,10 @@ def tron_alm_batched(
         step_cap = max_minor * max_auglag
 
     def cond(st: _State):
-        # float reduce instead of jnp.any: Mosaic's reduce_or proxy lowering
-        # materializes an f64 temp when jax_enable_x64 is on globally
-        # (mixed-precision fp64 solves), which it then cannot lower;
-        # the masks are 0/1 floats so max/min reduces are equivalent
-        return (jnp.max(st.active) > 0.5) & (st.steps < step_cap)
+        return _any(st.active) & (st.steps < step_cap)
 
+    x0 = tuple(x0)
+    lam0 = tuple(lam0)
     f0 = f_batched(x0, lam0, mu0)
     if active0 is None:
         active0 = jnp.ones((B,), bool)
@@ -562,13 +570,13 @@ def tron_alm_batched(
         delta=jnp.zeros((B,), dtype),
         alpha_c=jnp.ones((B,), dtype),
         tron_it=jnp.zeros((B,), jnp.int32),
-        tron_done=jnp.zeros((B,), dtype),
-        need_init=jnp.ones((B,), dtype),
+        tron_done=jnp.zeros((B,), bool),
+        need_init=jnp.ones((B,), bool),
         lam=lam0,
         mu=mu0,
         eta=1.0 / mu0**0.1,
         alm_it=jnp.zeros((B,), jnp.int32),
-        active=active0.astype(dtype),
+        active=active0,
         minor_total=jnp.zeros((B,), jnp.int32),
         cviol=jnp.full((B,), jnp.inf, dtype),
         steps=jnp.zeros((), jnp.int32),
@@ -580,8 +588,33 @@ def tron_alm_batched(
     )
 
 
+def _to_rows(a):
+    """Split the leading axes of a ``(..., B)`` array into nested tuples of
+    ``(B,)`` rows (a ``(B,)`` array is returned as it is)."""
+    if a.ndim == 1:
+        return a
+    return tuple(_to_rows(a[i]) for i in range(a.shape[0]))
+
+
+def tron_alm_batched(obj_fn, cons_fn, x0, xl, xu, params, lam0, mu0,
+                     **kwargs) -> TronALMResult:
+    """Array front end of :func:`tron_alm_rows` for the XLA path: ``x0``,
+    ``xl``, ``xu`` are ``(n, B)``, ``lam0`` ``(ncon, B)``, ``mu0`` ``(B,)``
+    and every ``params`` leaf ``(..., B)``. The leaves are split into rows,
+    so model functions see exactly what they see inside the GPU kernel.
+    Returns ``x`` and ``lam`` stacked back to ``(n, B)`` and ``(ncon, B)``.
+    """
+    B = x0.shape[1]
+    res = tron_alm_rows(
+        obj_fn, cons_fn, _to_rows(x0), _to_rows(xl), _to_rows(xu),
+        jax.tree.map(_to_rows, params), _to_rows(lam0), mu0, **kwargs)
+    lam = (jnp.stack(res.lam) if res.lam
+           else jnp.zeros((0, B), x0.dtype))
+    return res._replace(x=jnp.stack(res.x), lam=lam)
+
+
 def tron_batched(
-    obj_fn: Callable,   # (x (n,B), params) -> (B,)
+    obj_fn: Callable,   # (x rows, params) -> (B,)
     x0, xl, xu, params, **kwargs
 ):
     """Plain bound-constrained batched TRON (no constraints/ALM), rows layout."""
@@ -591,11 +624,12 @@ def tron_batched(
         return obj_fn(x, p)
 
     def cons(x, p):
-        del p
-        return jnp.zeros((0, x.shape[1]), x.dtype)
+        del x, p
+        return ()
 
     B = x0.shape[1]
     lam0 = jnp.zeros((0, B), x0.dtype)
     mu0 = jnp.full((B,), 10.0, x0.dtype)
     kwargs.setdefault("max_auglag", 1)
-    return tron_alm_batched(obj_alm, cons, x0, xl, xu, params, lam0, mu0, **kwargs)
+    return tron_alm_batched(obj_alm, cons, x0, xl, xu, params, lam0, mu0,
+                            **kwargs)

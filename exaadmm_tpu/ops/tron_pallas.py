@@ -1,160 +1,161 @@
-"""Fused Pallas TPU execution of the batched TRON/ALM solver.
+"""Fused GPU kernel (Pallas, Triton route) for the batched TRON/ALM solver.
 
-The pure-JAX path (`tron.py`) runs the lockstep state machine as one XLA
-while-loop over the FULL batch: every step streams ~40 (n,B) vectors through
-HBM for hundreds of small fused ops, and the trip count is the max over all
-B lanes. This kernel instead tiles the batch over a Pallas grid and runs the
-*same* state machine per tile with everything VMEM-resident:
+The XLA path (:func:`exaadmm_tpu.ops.tron.tron_alm_batched`) runs the
+lockstep state machine as nested ``lax.while_loop`` s over the FULL batch: on
+a GPU every trip of every loop copies its predicate back to the host and
+launches dozens of small fusions, and the trip count is the maximum over all
+lanes. This kernel runs the same state machine on one small tile of lanes per
+thread block instead:
 
-- HBM traffic collapses to one load + one store of the tile's inputs/outputs
-  (the iterates, gradients, and 6x6 Hessians never leave VMEM),
-- each tile runs its OWN while-loop trip count, so a pathological line only
-  stalls its 1024-lane tile, not the whole grid — the TPU analogue of the
-  reference's independent per-line CUDA blocks
-  (acopf_admm_update_x_gpu.jl:26-32).
+- one lane per thread: the iterates, gradients and 6x6 Hessians live in
+  registers, and device memory sees one load and one store per input and
+  output row;
+- each block runs its OWN trip count and exits when its own lanes are done,
+  so a pathological line stalls only its tile — the reference's independent
+  per-line CUDA blocks (acopf_admm_update_x_gpu.jl:26-32).
 
-The kernel body literally calls :func:`exaadmm_tpu.ops.tron.tron_alm_batched`
-on the tile values — one algorithm, two execution strategies. Autodiff
-(grad + Hessian-vector products) traces inside the kernel to plain VPU ops.
+The kernel body calls :func:`exaadmm_tpu.ops.tron.tron_alm_rows` on the tile
+— one algorithm, two execution strategies. Every input row (iterate bounds,
+multipliers, each row of each parameter leaf) is passed as its own ``(B,)``
+operand, so the body never slices or stacks inside the kernel.
 
-fp32 only (Mosaic has no f64); the fp64 path stays on pure-JAX XLA.
+fp32 only; fp64 solves use the XLA path.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Callable
 
 import jax
 import jax.numpy as jnp
+import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as pltriton
 
-from .tron import TronALMResult, tron_alm_batched
+from .tron import TronALMResult, tron_alm_batched, tron_alm_rows
+
+# lanes per thread block: one warp, one lane per thread (the fastest of
+# tiles 32..256 x 1..8 warps on the synth-9241 branch batch; PERF.md)
+DEFAULT_TILE = 32
 
 
-def _pad_last(a, pad, fill):
-    if pad == 0:
-        return a
-    widths = [(0, 0)] * (a.ndim - 1) + [(0, pad)]
-    return jnp.pad(a, widths, constant_values=fill)
+def _rows(a, pad, fill):
+    """Pad the last axis of a (..., B) array and split it into flat rows."""
+    if pad:
+        a = jnp.pad(a, [(0, 0)] * (a.ndim - 1) + [(0, pad)],
+                    constant_values=fill)
+    return [a[idx] for idx in np.ndindex(a.shape[:-1])]
+
+
+def _nest(shape, flat):
+    """Rebuild nested tuples of rows for a leaf of lead ``shape``."""
+    if not shape:
+        return next(flat)
+    return tuple(_nest(shape[1:], flat) for _ in range(shape[0]))
 
 
 def tron_alm_batched_pallas(
     obj_fn: Callable,
     cons_fn: Callable,
-    x0: jnp.ndarray,     # (n, B) rows layout
+    x0: jnp.ndarray,     # (n, B)
     xl: jnp.ndarray,
     xu: jnp.ndarray,
     params,              # pytree with (..., B) leaves
     lam0: jnp.ndarray,   # (ncon, B)
     mu0: jnp.ndarray,    # (B,)
     *,
-    tile: int = 1024,
+    tile: int = DEFAULT_TILE,
+    num_warps: int | None = None,
     active0: jnp.ndarray | None = None,
     interpret: bool = False,
-    fgh_fn=None,
     **opts,
 ) -> TronALMResult:
+    """Same contract as :func:`~exaadmm_tpu.ops.tron.tron_alm_batched`; the
+    batch is padded to whole tiles of ``tile`` lanes (a power of two) and
+    each tile runs in its own thread block of ``num_warps`` warps (default
+    ``tile // 32``, one lane per thread)."""
     n, B = x0.shape
     ncon = lam0.shape[0]
     dtype = x0.dtype
-    assert dtype == jnp.float32, "pallas TRON path is fp32-only"
+    if dtype != jnp.float32:
+        raise ValueError(f"the fused TRON kernel is fp32-only, got {dtype}")
+    if tile < 1 or tile & (tile - 1):
+        raise ValueError(f"tile must be a power of two, got {tile}")
+    if num_warps is None:
+        num_warps = max(1, tile // 32)
 
     ntiles = -(-B // tile)
     pad = ntiles * tile - B
-
     if active0 is None:
         active0 = jnp.ones((B,), bool)
-    act_f = _pad_last(active0.astype(dtype), pad, 0.0)
-
-    # Mosaic requires operand layouts to agree with XLA's; XLA tiles rank-1
-    # f32[B] arrays with a B-dependent 1-D tile that need not match the grid
-    # block, so every rank-1 lane array is lifted to (1, B) — blocks become
-    # (1, tile), the standard (sublane, lane) layout.
-    def lift(a):
-        return a[None] if a.ndim == 1 else a
 
     leaves, treedef = jax.tree_util.tree_flatten(params)
-    leaf_lifted = [leaf.ndim == 1 for leaf in leaves]
-    tensor_inputs = [
-        _pad_last(x0, pad, 0.5),
-        _pad_last(xl, pad, 0.0),
-        _pad_last(xu, pad, 1.0),
-        _pad_last(lam0, pad, 0.0),
-        lift(_pad_last(mu0, pad, 1.0)),
-        lift(_pad_last(act_f, 0, 0.0)),
-    ] + [lift(_pad_last(leaf, pad, 1.0)) for leaf in leaves]
+    leaf_shapes = [leaf.shape[:-1] for leaf in leaves]
+    # padded lanes: inactive, inside their unit box, well-scaled parameters
+    inputs = (_rows(x0, pad, 0.5) + _rows(xl, pad, 0.0) + _rows(xu, pad, 1.0)
+              + _rows(lam0, pad, 0.0) + _rows(mu0, pad, 1.0)
+              # lane mask as int32 (bool blocks lower too, but only this form
+              # has run on the card)
+              + _rows(active0.astype(jnp.int32), pad, 0))
+    for leaf in leaves:
+        inputs += _rows(leaf, pad, 1.0)
+    n_in = len(inputs)
 
-    def spec_for(a):
-        block = a.shape[:-1] + (tile,)
-        nlead = a.ndim - 1
-
-        def index_map(i, _n=nlead):
-            # i32-typed zeros: index maps are traced under the AMBIENT dtype
-            # config, and with jax_enable_x64 on (mixed-precision solves) a
-            # literal 0 becomes an i64 constant that Mosaic cannot legalize
-            # ("failed to legalize operation 'func.return'")
-            return (jnp.zeros((), jnp.int32),) * _n + (i,)
-
-        return pl.BlockSpec(block, index_map, memory_space=pltpu.VMEM)
-
-    in_specs = [spec_for(a) for a in tensor_inputs]
-
-    out_shapes = (
-        jax.ShapeDtypeStruct((n, ntiles * tile), dtype),      # x
-        jax.ShapeDtypeStruct((max(ncon, 1), ntiles * tile), dtype),  # lam
-        jax.ShapeDtypeStruct((1, ntiles * tile), dtype),      # mu
-        jax.ShapeDtypeStruct((1, ntiles * tile), jnp.int32),  # minor
-        jax.ShapeDtypeStruct((1, ntiles * tile), jnp.int32),  # alm
-        jax.ShapeDtypeStruct((1, ntiles * tile), dtype),      # cviol
-    )
-    out_specs = tuple(spec_for(jnp.zeros(s.shape, s.dtype)) for s in out_shapes)
+    Bp = ntiles * tile
+    f32 = jax.ShapeDtypeStruct((Bp,), dtype)
+    i32 = jax.ShapeDtypeStruct((Bp,), jnp.int32)
+    # x rows, lam rows, mu, minor, alm, cviol
+    out_shapes = (f32,) * (n + ncon) + (f32, i32, i32, f32)
+    spec = pl.BlockSpec((tile,), lambda i: (i,))
 
     def kernel(*refs):
-        # trace the body with x64 disabled: every tensor input is f32/i32,
-        # but under jax_enable_x64 (mixed-precision fp64 solves) Python float
-        # literals in the state machine trace as weak f64[] scalars, which
-        # Mosaic cannot lower ("only 32-bit element types can be converted
-        # to scalars"). With x64 off they trace as f32 — bit-identical to
-        # the fp32-solve path. The context must live INSIDE the kernel:
-        # pallas defers kernel tracing to jit-lowering time.
-        with jax.enable_x64(False):
-            (x0r, xlr, xur, lamr, mur, actr, *rest) = refs[: 6 + len(leaves)]
-            (xo, lamo, muo, mino, almo, cvo) = refs[6 + len(leaves):]
-            params_tile = jax.tree_util.tree_unflatten(
-                treedef,
-                [r[...][0] if was1d else r[...]
-                 for r, was1d in zip(rest, leaf_lifted)])
-            res = tron_alm_batched(
-                obj_fn, cons_fn,
-                x0r[...], xlr[...], xur[...], params_tile,
-                lamr[...], mur[...][0],
-                active0=actr[...][0] > 0.5,
-                fgh_fn=fgh_fn,
-                **opts,
-            )
-            xo[...] = res.x
-            lamo[...] = res.lam if ncon > 0 else jnp.zeros_like(lamo[...])
-            muo[...] = res.mu[None]
-            mino[...] = res.minor_iters[None]
-            almo[...] = res.alm_iters[None]
-            cvo[...] = res.cviol[None]
+        vals = iter([r[...] for r in refs[:n_in]])
+        x = tuple(itertools.islice(vals, n))
+        lo = tuple(itertools.islice(vals, n))
+        hi = tuple(itertools.islice(vals, n))
+        lam = tuple(itertools.islice(vals, ncon))
+        mu = next(vals)
+        act = next(vals) > 0
+        params_tile = jax.tree_util.tree_unflatten(
+            treedef, [_nest(s, vals) for s in leaf_shapes])
+        res = tron_alm_rows(obj_fn, cons_fn, x, lo, hi, params_tile, lam, mu,
+                            active0=act, **opts)
+        outs = (*res.x, *res.lam, res.mu, res.minor_iters, res.alm_iters,
+                res.cviol)
+        for ref, v in zip(refs[n_in:], outs):
+            ref[...] = v
 
     outs = pl.pallas_call(
         kernel,
         grid=(ntiles,),
-        in_specs=in_specs,
+        in_specs=[spec] * n_in,
+        out_specs=(spec,) * len(out_shapes),
         out_shape=out_shapes,
-        out_specs=out_specs,
+        backend="triton",
+        compiler_params=pltriton.CompilerParams(
+            num_warps=num_warps, num_stages=1),
         interpret=interpret,
-    )(*tensor_inputs)
+        name="tron_alm",
+    )(*inputs)
 
-    x, lam, mu, minor, alm, cviol = outs
-    return TronALMResult(
-        x=x[:, :B],
-        lam=lam[:ncon, :B],
-        mu=mu[0, :B],
-        minor_iters=minor[0, :B],
-        alm_iters=alm[0, :B],
-        cviol=cviol[0, :B],
-    )
+    x = jnp.stack(outs[:n])[:, :B]
+    lam = (jnp.stack(outs[n:n + ncon])[:, :B] if ncon
+           else jnp.zeros((0, B), dtype))
+    mu, minor, alm, cviol = (o[:B] for o in outs[n + ncon:])
+    return TronALMResult(x=x, lam=lam, mu=mu, minor_iters=minor,
+                         alm_iters=alm, cviol=cviol)
+
+
+def select_tron_solver(par, dtype):
+    """``(solver, extra kwargs)`` for a TRON/ALM batch in solve dtype
+    ``dtype``, from ``Parameters.branch_backend``: the fused kernel for an
+    fp32 batch under "auto" when JAX's default backend is a GPU; the XLA
+    path otherwise."""
+    backend = par.branch_backend
+    if backend not in ("auto", "xla"):
+        raise ValueError(f"unknown branch_backend {backend!r}")
+    if (backend == "auto" and dtype == jnp.float32
+            and jax.default_backend() == "gpu"):
+        return tron_alm_batched_pallas, {"tile": par.pallas_tile}
+    return tron_alm_batched, {}

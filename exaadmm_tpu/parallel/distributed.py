@@ -2,11 +2,11 @@
 
 The reference's multi-rank story is MPI scaffolding without collectives
 (SURVEY.md §2.7.3): ``AdmmEnv.use_mpi``/``comm`` (environment.jl:98-113) and
-rank-local ``shift_lines`` windows. The TPU-native story is
-``jax.distributed`` + one global device mesh; the sharded solvers in
+rank-local ``shift_lines`` windows. Here the story is ``jax.distributed`` +
+one global device mesh; the sharded solvers in
 :mod:`exaadmm_tpu.parallel.sharding` then work unchanged — ``shard_map``
-places each host's addressable line shards locally, ``psum``s ride ICI
-within a slice and DCN across slices.
+places each process's addressable line shards locally and the ``psum``s run
+as NCCL collectives across processes and hosts.
 
 Typical multi-host launch (same program on every host):
 
@@ -30,10 +30,11 @@ def initialize(coordinator_address: str | None = None,
                process_id: int | None = None) -> None:
     """Initialize ``jax.distributed`` when running multi-process.
 
-    With no arguments, reads the cluster environment (TPU pod runtime /
-    SLURM / Open MPI are auto-detected by jax). Safe to call twice and on
-    single-process runs (no-op when the backend is already initialized or
-    there is nothing to join).
+    With no arguments, reads the cluster environment (SLURM / Open MPI are
+    auto-detected by jax; elsewhere pass ``coordinator_address``
+    (``host:port``), ``num_processes`` and ``process_id``). Safe to call
+    twice and on single-process runs (no-op when the backend is already
+    initialized or there is nothing to join).
     """
     state = getattr(jax._src.distributed, "global_state", None)
     if state is not None and state.client is not None:
@@ -65,7 +66,7 @@ def initialize_and_make_mesh(axis: str = AXIS, **init_kwargs):
 
 def process_line_slice(nline_padded: int, mesh=None) -> slice:
     """This process's contiguous window of the global (padded) line batch —
-    the TPU analogue of the reference's rank-local ``shift_lines`` offset
+    the analogue of the reference's rank-local ``shift_lines`` offset
     (environment.jl:22-23). Useful for feeding host-sharded inputs to
     ``jax.make_array_from_process_local_data``."""
     nproc = jax.process_count()

@@ -1,6 +1,6 @@
 """Multi-chip sharding: lines partitioned over a device mesh.
 
-TPU-native completion of the reference's MPI scaffolding (nline padded to a
+Completion of the reference's MPI scaffolding (nline padded to a
 rank multiple + ``shift_lines`` windows but NO collectives anywhere —
 SURVEY.md §2.7.3; acopf_model.jl:50-53, environment.jl:22-23):
 
@@ -13,8 +13,9 @@ SURVEY.md §2.7.3; acopf_model.jl:50-53, environment.jl:22-23):
   whose lines converge early stops early (unlike the global lockstep of the
   single-chip path),
 - the bus consensus update needs one stacked (nbus, 8) ``psum``; the residual
-  norms one (7,) ``psum``; branch stats one (2,) ``psum`` per inner iteration;
-  everything rides ICI.
+  norms one (7,) ``psum``; branch stats one (2,) ``psum`` per inner
+  iteration. XLA hands them to NCCL; the cards of one host are joined all
+  to all, so the 1-D line mesh follows the algorithm alone.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Algorithm parameters, ADMM environment, and solution state pytrees.
 
-TPU-native reworking of the reference ``src/utils/environment.jl``:
+Reworking of the reference ``src/utils/environment.jl``:
 
 - ``Parameters`` mirrors the constants/defaults of environment.jl:6-76,
 - ``Blocks`` replaces the flat interleaved nvar-vector
@@ -59,14 +59,12 @@ class Parameters:
     # lockstep budget: total trust-region steps per batched branch solve.
     # The reference lets each CUDA block run to its own caps (200 minor x 50
     # ALM rounds); in the batched lockstep design one pathological lane would
-    # stall the whole batch, so the global loop is budgeted. Lanes cut short
-    # are simply warm-started again next ADMM iteration (inexact ADMM).
-    # None = reference behaviour (max_minor * max_auglag).
-    # Production tuning (tools/solve_ab.py, synth-9241 full solve to the
-    # 20-outer limit): cap 12 matches cap 24's endpoint (obj delta 0.003%,
-    # mismatch 0.2006 vs 0.1934) at +14.5% it/s — the per-ADMM-iteration
-    # subproblem accuracy beyond ~12 lockstep steps is wasted because the
-    # prox targets move next iteration anyway. bench.py defaults to 12.
+    # stall the whole batch (or its kernel tile), so the loop is budgeted.
+    # Lanes cut short are simply warm-started again next ADMM iteration
+    # (inexact ADMM). None = reference behaviour (max_minor * max_auglag).
+    # The fp32 production setting is 12: the per-ADMM-iteration subproblem
+    # accuracy beyond ~12 lockstep steps is wasted because the prox targets
+    # move next iteration anyway. bench.py defaults to 12.
     tron_step_cap: int | None = None
 
     # branch ALM termination (auglag kernel :128-137)
@@ -74,88 +72,70 @@ class Parameters:
 
     # fixed-trip unrolled trial searches inside the TRON step
     # (k_interp, k_extrap, k_prsrch); None = reference while-loop searches.
-    # (22, 10, 20) is bit-identical to None; smaller caps looked attractive
-    # in steady-state it/s A/Bs (~+8%) but a capped projected search that
-    # fails changes trajectories enough to cost convergence on sensitive
-    # fp32 cases (synthetic 1354-bus regression) — keep None.
+    # (22, 10, 20) is bit-identical to None; smaller caps give uniform
+    # per-step cost, but a capped projected search that fails changes
+    # trajectories enough to cost convergence on sensitive fp32 cases
+    # (synthetic 1354-bus regression) — keep None.
     # "auto" currently resolves to None on every backend.
     tron_trial_unroll: tuple[int, int, int] | str | None = "auto"
 
     # difficulty-sort lines between outer iterations so hard lanes cluster
-    # into the same Pallas tiles and easy tiles exit their lockstep loop
+    # into the same kernel tiles and easy tiles exit their lockstep loop
     # early (the per-lane step counts are heavily skewed: p50 ~3 steps,
     # stragglers ~30; random order puts a straggler in every tile). Exactly
     # permutation-equivariant up to reduction rounding. Default OFF: with
     # the two-pass compaction at pass-1 cap 2 the sort can only save one
-    # lockstep step per easy tile, which no longer covers the per-outer
-    # permutation cost (measured 959 vs 928 it/s at synth-9241, round 4);
-    # it predates the two-pass design and remains available for single-pass
-    # configs, where it is a large win.
+    # lockstep step per easy tile, against a per-outer permutation cost.
     sort_lines: bool = False
 
-    # two-pass branch solve: pass 1 runs every tile with a small lockstep
+    # two-pass branch solve: pass 1 runs every lane with a small lockstep
     # budget (branch_pass1_cap); the unfinished stragglers are then compacted
-    # into branch_tail_tiles Pallas tiles and re-solved from scratch with the
-    # full budget. A re-solved lane's trajectory is identical to the
-    # single-pass solve (trajectories are independent of tile composition);
-    # stragglers BEYOND the tail capacity keep their pass-1 iterate and
-    # warm-start the next ADMM iteration — additional deliberate inexactness
-    # on top of tron_step_cap. Measured steady-state straggler rates at
-    # synth-9241 (tools/hook_bench.py): ~31% of lanes exceed the pass-1
-    # budget at the default cap 2 — the 1/16 tail holds
-    # ~6% of lanes, so in steady state the tail re-solves the hardest
-    # slice and the rest of the stragglers carry budgeted iterates into the
-    # next ADMM iteration, which warm-starts them (same self-correction as
-    # tron_step_cap truncation). The per-dispatch stats `pass1_unfinished`
-    # (lanes that ran out of pass-1 budget) and `tail_overflow` (lanes
-    # beyond tail capacity) quantify the injected inexactness; convergence
-    # regressions in tests/ and the recorded time-to-tolerance artifacts
-    # (tools/solve_bench.py) guard the quality. Applied when the line batch
-    # spans enough tiles to matter (B >= 4 * tail capacity).
-    # branch_tail_tiles=None sizes the tail to 1/16 of the batch.
+    # into a tail of branch_tail_lanes lanes and re-solved from
+    # scratch with the full budget. A re-solved lane's trajectory is
+    # identical to the single-pass solve (trajectories are independent of
+    # tile composition); stragglers BEYOND the tail capacity keep their
+    # pass-1 iterate and warm-start the next ADMM iteration — additional
+    # deliberate inexactness on top of tron_step_cap, self-correcting the
+    # same way. The per-dispatch stats `pass1_unfinished` (lanes that ran
+    # out of pass-1 budget) and `tail_overflow` (lanes beyond tail capacity)
+    # quantify the injected inexactness; convergence regressions in tests/
+    # guard the quality. Applied when the line batch is at least four tail
+    # capacities (B >= 4 * tail capacity).
+    # branch_tail_lanes=None sizes the tail to 1/16 of the batch, rounded
+    # up to whole 1024-lane blocks (so batches under 4096 lanes stay
+    # single-pass).
     branch_two_pass: bool = True
-    # measured at 9241 scale with the 1/16 tail: cap 2 beats 3 by ~12%
-    # steady-state and ~22% on full solves (see tools/solve_ab.py)
     branch_pass1_cap: int = 2
-    branch_tail_tiles: int | None = None
+    branch_tail_lanes: int | None = None
 
-    # branch solver execution backend: "xla" (pure-JAX while loop over the
-    # full batch) or "pallas" (fused VMEM-resident kernel, fp32 only, tiled
-    # so each tile runs its own trip count). "auto" = pallas when on TPU
-    # with fp32, else xla.
-    branch_backend: str = "xla"
-    pallas_tile: int = 1024
+    # TRON/ALM batch solver (branch lines, mpacopf ramp generators, qpsub
+    # reduced QPs). "auto" (the default and the production setting) runs
+    # fp32 batches through the fused GPU kernel (ops/tron_pallas.py,
+    # Pallas-Triton, each block of pallas_tile lanes with its own trip
+    # count) when JAX's default backend is a GPU, and everything else
+    # through "xla", the lockstep while loop over the full batch (any
+    # dtype), which is also the kernel's reference.
+    branch_backend: str = "auto"
+    # lanes per kernel thread block (a power of two; one lane per thread,
+    # tile // 32 warps)
+    pallas_tile: int = 32
     # mixed precision: in an fp64 solve, run the branch TRON/ALM batch in
-    # fp32 (Pallas-eligible) and keep bus consensus / z / l / lz / residual
-    # accumulation in fp64. The branch x-update is ~90% of the fp64
-    # iteration cost but its iterates feed back through the fp64 consensus
-    # step, which is where the PARITY dtype table shows fp32 pays — so this
-    # recovers most of the fp32 throughput at near-fp64 quality. No effect
-    # on fp32 solves.
+    # fp32 (kernel-eligible) and keep bus consensus / z / l / lz / residual
+    # accumulation in fp64. No effect on fp32 solves.
     mixed_precision: bool = False
     # bus-update line->bus scatter backend: "segsum" (exact
-    # jax.ops.segment_sum, row-serial on TPU) or "kr" (Khatri-Rao one-hot
-    # MXU matmuls, ~2x faster at benchmark scale, ~3e-6 rel aggregation
-    # error — below fp32 solver tolerances; see kernels.kr_scatter).
-    # "auto" = kr for fp32 (TPU production), segsum otherwise (fp64 parity).
+    # jax.ops.segment_sum), "kr" (Khatri-Rao one-hot matmuls with a 3-term
+    # bf16 split, ~1e-7 rel aggregation error; see kernels.kr_scatter) or
+    # "kr_win" (the windowed KR form). "auto": see
+    # models.acopf.model.resolve_bus_backend.
     bus_backend: str = "auto"
-    # pass-1 tile width for the two-pass branch solve (None = pallas_tile).
-    # Pass-1's trip count is BOUNDED by branch_pass1_cap (a tile still exits
-    # early when every lane in it converges), so wider tiles cannot couple
-    # lockstep trip counts beyond the cap the way they do in single-pass
-    # mode — they just amortize the ~10us/step Mosaic op latency over more
-    # lanes. The
-    # tail re-solve keeps pallas_tile (its trip count IS data-dependent).
-    # Bounded by VMEM: the kernel working set is ~2.3 KB/lane, so 4096 is
-    # the practical ceiling on v5e (16 MB VMEM with input double-buffering).
-    pallas_pass1_tile: int | None = None
 
 
 @dataclasses.dataclass
 class AdmmEnv:
     """Top-level solve context (reference AdmmEnv, environment.jl:85-158).
 
-    In the TPU build most of AdmmEnv's role is absorbed by function arguments
+    In this build most of AdmmEnv's role is absorbed by function arguments
     and the model dataclasses; this record exists for API parity and for
     callers who want to carry the full context around: case name, parsed
     data, rho seeds, feature flags, and the Parameters block. Each interface
@@ -273,9 +253,8 @@ class Solution:
 def permute_solution_lines(sol: Solution, ids) -> Solution:
     """Reorder every line-indexed row of a Solution by ``ids``.
 
-    Packed into a single gather: on TPU a gather costs ~90us per CALL
-    independent of the row count, so the 12 line-indexed arrays are
-    concatenated column-wise and gathered once."""
+    Packed into a single gather: the 12 line-indexed arrays are concatenated
+    column-wise and gathered once."""
     blocks = (sol.u, sol.v, sol.l, sol.rho, sol.z, sol.z_prev, sol.lz,
               sol.rp, sol.rd)
     alm = sol.branch_alm

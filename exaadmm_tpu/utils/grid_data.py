@@ -1,6 +1,6 @@
 """Device-resident grid data (jnp arrays, registered pytree).
 
-TPU-native equivalent of the reference ``GridData`` SoA container
+Equivalent of the reference ``GridData`` SoA container
 (``/root/reference/src/utils/grid_data.jl:3-89``) + the ``get_*_data``
 flatteners (opfdata.jl:542-887). Differences by design:
 
@@ -91,10 +91,9 @@ def permute_lines(gd: GridData, ids) -> GridData:
 
     The ADMM iteration is permutation-equivariant in the line batch (the
     reference's per-line CUDA blocks are order-free too); reordering only
-    changes which lines share a Pallas tile / device shard. All 16 arrays
-    are packed column-wise and gathered ONCE (TPU gathers cost ~90us per
-    call regardless of width); the int32 bus indices ride along as floats
-    (exact below 2^23).
+    changes which lines share a kernel tile / device shard. All 16 arrays
+    are packed column-wise and gathered ONCE; the int32 bus indices ride
+    along as floats (exact below 2^23).
     """
     import dataclasses as _dc
     dtype = gd.YffR.dtype

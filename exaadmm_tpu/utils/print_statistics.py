@@ -36,6 +36,6 @@ def print_statistics(info: IterationInformation, extra: dict | None = None):
               f"(last inner iteration; tail re-solved up to capacity)")
     if info.tail_overflow > 0:
         print(f"Two-pass tail overflow (lines)  . {info.tail_overflow} "
-              f"(raise Parameters.branch_tail_tiles)")
+              f"(raise Parameters.branch_tail_lanes)")
     for k, v in (extra or {}).items():
         print(f"{k:<34}{v}")

@@ -199,28 +199,3 @@ def test_kr_windowed_scatter_wide_window():
     np.add.at(ref, to, np.asarray(vt, np.float64))
     rel = np.abs(got - ref).max() / np.abs(ref).max()
     assert rel < 1e-6
-
-
-def test_kr_scatter_pallas_precision_interpret():
-    """The experimental Pallas bus scatter carries the SAME 3-term bf16
-    split as kernels.kr_scatter (full fp32, ~1e-7 rel) — the 2-term version
-    (~3e-6) is the precision level that measurably stalls full-solve
-    convergence and must not come back (VERDICT r4 weak #7)."""
-    import jax.numpy as jnp
-    from exaadmm_tpu.ops.bus_pallas import kr_scatter_pallas
-
-    rng = np.random.default_rng(3)
-    N, NBUS, C = 3000, 2100, 8
-    fr = rng.integers(0, NBUS, N).astype(np.int32)
-    to = rng.integers(0, NBUS, N).astype(np.int32)
-    vf = jnp.asarray(rng.standard_normal((N, C)) * 1e3, jnp.float32)
-    vt = jnp.asarray(rng.standard_normal((N, C)) * 1e3, jnp.float32)
-
-    got = np.asarray(kr_scatter_pallas(vf, vt, jnp.asarray(fr),
-                                       jnp.asarray(to), nbus=NBUS,
-                                       interpret=True))
-    ref = np.zeros((NBUS, C))
-    np.add.at(ref, fr, np.asarray(vf, np.float64))
-    np.add.at(ref, to, np.asarray(vt, np.float64))
-    rel = np.abs(got - ref).max() / np.abs(ref).max()
-    assert rel < 5e-7, rel

@@ -20,15 +20,15 @@ from exaadmm_tpu.utils.synthetic import synthetic_case
 
 def test_two_pass_matches_single_pass():
     data = synthetic_case(300, seed=3)
-    # small tile so the two-pass gate (B >= 4 * tail capacity) opens on a
+    # small tail so the two-pass gate (B >= 4 * tail capacity) opens on a
     # 300-bus case; xla backend keeps this exact on CPU fp64
     par = Parameters(verbose=0, tron_step_cap=24, branch_backend="xla",
-                     pallas_tile=16, branch_tail_tiles=4,
+                     branch_tail_lanes=64,
                      branch_pass1_cap=6, branch_two_pass=True)
     model = M.build_model(data, par, dtype=jnp.float64)
     sol = M.init_solution(model, 400.0, 40000.0)
     par.scale = 1e-4
-    assert model.grid.nline_padded >= 4 * par.branch_tail_tiles * par.pallas_tile
+    assert model.grid.nline_padded >= 4 * par.branch_tail_lanes
 
     # perturb the prox targets so a spread of lane difficulties exists
     rng = np.random.default_rng(0)

@@ -17,8 +17,9 @@ from exaadmm_tpu.utils.environment import Parameters
 from exaadmm_tpu.utils.opfdata import opf_loaddata
 
 
-@pytest.mark.skipif(len(jax.devices()) < 8, reason="needs 8 devices")
 def test_sharded_inner_loop_collectives(case9_path):
+    if len(jax.devices()) < 8:
+        pytest.skip("needs 8 devices")
     data = opf_loaddata(case9_path, verbose=0)
     par = Parameters(verbose=0, scale=1e-4)
     model = M.build_model(data, par, pad_lines_to=8, dtype=jnp.float64)

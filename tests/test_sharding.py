@@ -160,29 +160,37 @@ def test_sharded_fused_solve_kr_bus_backend(case9_path):
 
 
 def test_bus_backend_auto_resolution():
-    """auto: windowed KR for fp32 at moderate nbus (round-5 lean-split A/B:
-    kr_win 349.7 > kr 332.1 it/s at 9241); fp64 and huge grids use exact
-    segment_sum (at synth-70k the 2N-row permutation gather still loses,
-    92.2 vs 89.4 it/s). Callers without a static window setup fall back to
-    dense kr at the call site."""
-    import jax.numpy as jnp
+    """auto: exact segment_sum (the H100 A/B at synth-9241 fp32: segsum
+    3995.6 vs kr_win 3431.9 steady-state it/s, chip_smoke phase d);
+    explicit backends pass through."""
     from exaadmm_tpu.models.acopf.model import resolve_bus_backend
     from exaadmm_tpu.utils.environment import Parameters
 
-    par = Parameters()
-    assert resolve_bus_backend(par, jnp.float32, 9241) == "kr_win"
-    assert resolve_bus_backend(par, jnp.float64, 9241) == "segsum"
-    assert resolve_bus_backend(par, jnp.float32, 70656) == "segsum"
-    par2 = Parameters(bus_backend="segsum")
-    assert resolve_bus_backend(par2, jnp.float32, 9241) == "segsum"
-    par3 = Parameters(bus_backend="kr_win")
-    assert resolve_bus_backend(par3, jnp.float32, 70656) == "kr_win"
+    assert resolve_bus_backend(Parameters()) == "segsum"
+    for bb in ("segsum", "kr", "kr_win"):
+        assert resolve_bus_backend(Parameters(bus_backend=bb)) == bb
+
+
+def test_auto_bus_backend_builds_no_window_setup(case9_path):
+    """Only an explicit kr_win model pays for the static windowed-KR setup
+    at build; auto (segsum) and dense kr do not."""
+    import jax.numpy as jnp
+    from exaadmm_tpu.models.acopf import model as M
+    from exaadmm_tpu.utils.environment import Parameters
+    from exaadmm_tpu.utils.opfdata import opf_loaddata
+
+    data = opf_loaddata(case9_path, verbose=0)
+    for bb, expect in (("auto", False), ("kr", False), ("kr_win", True)):
+        model = M.build_model(data, Parameters(verbose=0, bus_backend=bb),
+                              dtype=jnp.float32)
+        has = getattr(model, "_kr_win_setup", None) is not None
+        assert has == expect, bb
 
 
 def test_auto_kr_win_full_solve_matches_segsum(case9_path):
-    """The auto-selected windowed-KR bus backend reproduces the segsum
-    trajectory on a full fp32 fused solve (lockstep iteration counts, same
-    objective) — guards the r5 auto-policy flip end to end."""
+    """The windowed-KR bus backend (auto's choice before the H100 A/B)
+    reproduces the segsum trajectory on a full fp32 fused solve (lockstep
+    iteration counts, same objective)."""
     import jax.numpy as jnp
     from exaadmm_tpu.algorithms.admm_two_level import admm_two_level_fused
     from exaadmm_tpu.models.acopf import model as M
@@ -191,16 +199,16 @@ def test_auto_kr_win_full_solve_matches_segsum(case9_path):
 
     data = opf_loaddata(case9_path, verbose=0)
     results = {}
-    for bb in ("segsum", "auto"):
+    for bb in ("segsum", "kr_win"):
         par = Parameters(verbose=0, outer_iterlim=12, outer_eps=2e-4,
                          scale=1e-4, bus_backend=bb)
         model = M.build_model(data, par, dtype=jnp.float32)
-        if bb == "auto":
+        if bb == "kr_win":
             assert getattr(model, "_kr_win_setup", None) is not None
         sol = M.init_solution(model, 4e2, 4e4)
         sol, info = admm_two_level_fused(model, sol, IterationInformation())
         results[bb] = info
-    a, b = results["segsum"], results["auto"]
+    a, b = results["segsum"], results["kr_win"]
     assert abs(a.cumul - b.cumul) <= 0.02 * a.cumul + 2
     assert abs(a.objval - b.objval) <= 1e-3 * abs(a.objval)
 
@@ -220,7 +228,7 @@ def test_sort_lines_with_auto_kr_win(case9_path):
     results = {}
     for sort in (False, True):
         par = Parameters(verbose=0, outer_iterlim=12, outer_eps=2e-4,
-                         scale=1e-4, bus_backend="auto", sort_lines=sort)
+                         scale=1e-4, bus_backend="kr_win", sort_lines=sort)
         model = M.build_model(data, par, dtype=jnp.float32)
         sol = M.init_solution(model, 4e2, 4e4)
         sol, info = admm_two_level_fused(model, sol, IterationInformation())

@@ -3,7 +3,8 @@
 Chains N full iterations inside one jitted fori_loop on a warmed mid-solve
 state (so nothing is loop-invariant-hoisted away), then ablates one hook at a
 time (replacing it with a pass-through that still feeds the chain) to
-attribute cost. Run on the TPU; single process so dispatch drift cancels.
+attribute cost. Run on the GPU, in one process, so both sides of every
+comparison share one card and one compile cache.
 """
 
 import sys
@@ -27,8 +28,6 @@ def main():
     data = synthetic_case(nbus, seed=0)
     par = Parameters(verbose=0,
                      tron_step_cap=int(os.environ.get("BENCH_STEP_CAP", 12)),
-                     branch_backend="pallas",
-                     pallas_tile=1024,
                      sort_lines=os.environ.get("BENCH_SORT", "0") == "1",
                      bus_backend=os.environ.get("BENCH_BUS", "auto"),
                      inner_iterlim=20, outer_iterlim=5, outer_eps=0.0)

@@ -48,8 +48,7 @@ def bench_qpsub():
 
     par = Parameters(verbose=0, scale=1e-4, outer_iterlim=iters, outer_eps=0.0,
                      tron_step_cap=int(os.environ.get("BENCH_STEP_CAP", 24)),
-                     branch_backend=os.environ.get("BENCH_BACKEND", "pallas"),
-                     pallas_tile=int(os.environ.get("BENCH_TILE", 1024)))
+                     branch_backend=os.environ.get("BENCH_BACKEND", "auto"))
     model = Q.build_model(gd, par, qp, dtype=dtype)
     sol = model.one_level_reset(Q.init_solution(model, 4e3, 4e3))
 
@@ -100,8 +99,7 @@ def bench_mpacopf():
     par = Parameters(verbose=0, scale=1e-4, outer_iterlim=outers,
                      inner_iterlim=inner, outer_eps=0.0,
                      tron_step_cap=int(os.environ.get("BENCH_STEP_CAP", 24)),
-                     branch_backend=os.environ.get("BENCH_BACKEND", "pallas"),
-                     pallas_tile=int(os.environ.get("BENCH_TILE", 1024)))
+                     branch_backend=os.environ.get("BENCH_BACKEND", "auto"))
     model = mp_M.build_model(data, par, pd_mat, qd_mat,
                              start_period=1, end_period=T, dtype=dtype)
     sol = mp_M.init_solution(model, 4e2, 4e4)

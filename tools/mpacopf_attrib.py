@@ -7,8 +7,9 @@ counterpart of tools/hook_bench.py, built for VERDICT r4 task #5 (13.8 it/s
 at T=8 x 4,877 lines = ~5% of the flagship per-lane rate, unattributed).
 
 Env: BENCH_NBUS (default 2869), BENCH_T (default 8), BENCH_N (chain length,
-default 20), BENCH_STEP_CAP (default 12), BENCH_BACKEND (default pallas).
-Run on the TPU; single process so dispatch drift cancels.
+default 20), BENCH_STEP_CAP (default 12), BENCH_BACKEND (default auto).
+Run on the GPU, in one process, so both sides of every comparison share one
+card.
 """
 
 import os
@@ -40,8 +41,7 @@ def main():
     par = Parameters(
         verbose=0,
         tron_step_cap=int(os.environ.get("BENCH_STEP_CAP", 12)),
-        branch_backend=os.environ.get("BENCH_BACKEND", "pallas"),
-        pallas_tile=1024, scale=1e-4,
+        branch_backend=os.environ.get("BENCH_BACKEND", "auto"), scale=1e-4,
         inner_iterlim=20, outer_iterlim=3, outer_eps=0.0,
     )
     model = mp_M.build_model(data, par, pd_mat, qd_mat,

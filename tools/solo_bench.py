@@ -2,7 +2,8 @@
 inside one jitted fori_loop (complement to hook_bench.py's ablation — the
 ablation underestimates hooks whose work fuses into neighbours).
 
-Run on the TPU; single process so dispatch drift cancels.
+Run on the GPU, in one process, so both sides of every comparison share one
+card.
 """
 
 import sys
@@ -24,8 +25,7 @@ def main():
 
     nbus = int(os.environ.get("BENCH_NBUS", 9241))
     data = synthetic_case(nbus, seed=0)
-    par = Parameters(verbose=0, tron_step_cap=24, branch_backend="pallas",
-                     pallas_tile=1024, sort_lines=True,
+    par = Parameters(verbose=0, tron_step_cap=24, sort_lines=True,
                      inner_iterlim=20, outer_iterlim=5, outer_eps=0.0)
     model = M.build_model(data, par, dtype=jnp.float32)
     sol0 = M.init_solution(model, 400.0, 40000.0)
